@@ -1,0 +1,22 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` → ``cuda:0``. Raises when a CUDA device is asked for (or
+    implied) and none exists: the port never falls back to the CPU on its
+    own; the CPU is used only when the caller passes ``device="cpu"``."""
+    dev = torch.device("cuda:0" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev

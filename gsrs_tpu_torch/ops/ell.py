@@ -1,0 +1,259 @@
+"""Bucketed-ELL propagation, forward only (port of `gsrs_tpu.ops.ell`).
+
+Each direction of the normalized bipartite graph is a set of
+degree-bucketed rectangles: bucket row ``rows[i]`` aggregates
+``cols[i, :]`` with weights ``w[i, :]``, so one SpMM is a gather
+(`index_select`) and a weighted reduction (`einsum`) per bucket, and the
+output rows are assembled by one more gather. Padding slots carry weight
+0 and column 0. Rows wider than ``max_width`` are split into chunks; the
+overflow chunks are added back into their real rows with `index_add_`.
+
+The host builders are numpy, exactly the JAX package's, and return CPU
+tensors; `EllGraph.to` moves them to the device. Dropout and the
+backward pass (the transpose-side apply as a `torch.autograd.Function`)
+belong to the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EllBucket:
+    """One degree bucket. ``eidx`` maps each slot to its canonical edge
+    index (0 on padding slots, whose weight is 0)."""
+
+    rows: torch.Tensor  # (n_b,) int32 destination row ids
+    cols: torch.Tensor  # (n_b, D_b) int32 source row ids, 0-padded
+    w: torch.Tensor  # (n_b, D_b) float32 edge weights, 0-padded
+    eidx: torch.Tensor  # (n_b, D_b) int32 canonical edge index, 0-padded
+
+    def to(self, device) -> "EllBucket":
+        return EllBucket(*(t.to(device) for t in (self.rows, self.cols, self.w, self.eidx)))
+
+
+@dataclasses.dataclass(frozen=True)
+class EllSide:
+    """All buckets of one SpMM direction plus the row-assembly gather.
+
+    ``assemble``: (n_rows,) indices into the concatenation of the bucket
+    outputs with one zero row appended; zero-degree rows point at it.
+    ``extra_dst``/``extra_pos``: overflow chunks of rows wider than
+    ``max_width``; chunk output ``extra_pos[j]`` is added into row
+    ``extra_dst[j]``. None when no row was split."""
+
+    buckets: Tuple[EllBucket, ...]
+    assemble: torch.Tensor  # (n_rows,) int32
+    n_rows: int
+    extra_dst: Optional[torch.Tensor] = None  # (n_extra,) int32
+    extra_pos: Optional[torch.Tensor] = None  # (n_extra,) int32
+
+    def to(self, device) -> "EllSide":
+        def mv(t):
+            return None if t is None else t.to(device)
+
+        return EllSide(
+            buckets=tuple(b.to(device) for b in self.buckets),
+            assemble=self.assemble.to(device),
+            n_rows=self.n_rows,
+            extra_dst=mv(self.extra_dst),
+            extra_pos=mv(self.extra_pos),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class EllGraph:
+    """Both directions of the normalized bipartite graph in ELL form."""
+
+    by_user: EllSide  # dst=users, src=items  (computes W @ item_emb)
+    by_item: EllSide  # dst=items, src=users  (computes W^T @ user_emb)
+    n_users: int
+    m_items: int
+
+    def to(self, device) -> "EllGraph":
+        return dataclasses.replace(
+            self, by_user=self.by_user.to(device), by_item=self.by_item.to(device)
+        )
+
+
+# ---------------------------------------------------------------- builders
+
+
+def _build_side(
+    dst: np.ndarray,
+    src: np.ndarray,
+    w: np.ndarray,
+    eidx: np.ndarray,
+    n_rows: int,
+    min_width: int = 4,
+    max_width: int = 65536,
+) -> EllSide:
+    """Group rows by degree into buckets of fine widths (multiples of 4
+    up to 64, then powers of two). Rows with degree > ``max_width`` are
+    split into ceil(D/max_width) virtual rows whose overflow chunks are
+    summed back through ``extra_dst``/``extra_pos``."""
+    order = np.argsort(dst, kind="stable")
+    dst, src, w, eidx = dst[order], src[order], w[order], eidx[order]
+    degrees = np.bincount(dst, minlength=n_rows)
+    row_start = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int64)
+
+    n_real = n_rows
+    extra_dst_list = []
+    if max_width & (max_width - 1):
+        # the width cap relies on pow2 bucket widths: round down to one
+        max_width = 1 << (max_width.bit_length() - 1)
+    over = np.flatnonzero(degrees > max_width)
+    if over.size:
+        dst = dst.astype(np.int64, copy=True)
+        n_virtual = n_rows
+        for r in over:  # few mega rows; a per-row loop is fine
+            D = int(degrees[r])
+            k = -(-D // max_width)
+            pos = row_start[r] + np.arange(D)
+            chunk = np.arange(D) // max_width
+            dst[pos] = np.where(chunk == 0, r, n_virtual + chunk - 1)
+            extra_dst_list.extend([r] * (k - 1))
+            n_virtual += k - 1
+        order2 = np.argsort(dst, kind="stable")
+        dst, src, w, eidx = dst[order2], src[order2], w[order2], eidx[order2]
+        n_rows = n_virtual
+        degrees = np.bincount(dst, minlength=n_rows)
+        row_start = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int64)
+
+    active_rows = np.flatnonzero(degrees > 0)
+    deg_active = degrees[active_rows]
+    fine = np.maximum(min_width, ((deg_active + 3) // 4) * 4)
+    coarse = 1 << np.ceil(np.log2(np.maximum(deg_active, 1))).astype(np.int64)
+    widths = np.where(deg_active <= 64, np.minimum(fine, 64), coarse)
+    buckets = []
+    concat_pos = np.full(n_rows, -1, dtype=np.int64)
+    n_assembled = 0
+    for width in np.unique(widths):
+        rows = active_rows[widths == width]
+        n_b = rows.size
+        deg = degrees[rows]
+        # slot (k, j) holds the j-th edge of the k-th row of this bucket
+        within = np.arange(deg.sum()) - np.repeat(np.cumsum(deg) - deg, deg)
+        flat_slot = np.repeat(np.arange(n_b), deg) * width + within
+        edge_pos = np.repeat(row_start[rows], deg) + within
+        cols = np.zeros(n_b * width, dtype=np.int32)
+        ws = np.zeros(n_b * width, dtype=np.float32)
+        es = np.zeros(n_b * width, dtype=np.int32)
+        cols[flat_slot] = src[edge_pos]
+        ws[flat_slot] = w[edge_pos]
+        es[flat_slot] = eidx[edge_pos]
+        buckets.append(
+            (rows.astype(np.int32), cols.reshape(n_b, width), ws.reshape(n_b, width),
+             es.reshape(n_b, width))
+        )
+        concat_pos[rows] = n_assembled + np.arange(n_b)
+        n_assembled += n_b
+    # zero-degree rows → the appended zero row at index n_assembled
+    assemble = np.where(concat_pos >= 0, concat_pos, n_assembled).astype(np.int32)
+    extra_dst = extra_pos = None
+    if extra_dst_list:
+        extra_dst = np.asarray(extra_dst_list, dtype=np.int32)
+        extra_pos = assemble[n_real:]  # virtual rows all have degree > 0
+        # bucket rows carry the REAL destination id of overflow chunks
+        buckets = [
+            (np.where(r >= n_real, extra_dst[np.maximum(r, n_real) - n_real], r).astype(np.int32),
+             c, ws, es)
+            for r, c, ws, es in buckets
+        ]
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+    return EllSide(
+        buckets=tuple(EllBucket(*(t(a) for a in b)) for b in buckets),
+        assemble=t(assemble[:n_real]),
+        n_rows=n_real,
+        extra_dst=t(extra_dst),
+        extra_pos=t(extra_pos),
+    )
+
+
+def build_ell_graph(
+    users: np.ndarray,
+    items: np.ndarray,
+    weights: np.ndarray,
+    n_users: int,
+    m_items: int,
+    min_width: int = 4,
+    max_width: int = 65536,
+) -> EllGraph:
+    """Build from canonical (unpadded) edge arrays and their normalized
+    weights (`gsrs_tpu_torch.data.adjacency.normalized_edge_weights`)."""
+    eidx = np.arange(users.size, dtype=np.int32)
+    return EllGraph(
+        by_user=_build_side(users, items, weights, eidx, n_users, min_width, max_width),
+        by_item=_build_side(items, users, weights, eidx, m_items, min_width, max_width),
+        n_users=n_users,
+        m_items=m_items,
+    )
+
+
+def ell_from_graph(graph, min_width: int = 4) -> EllGraph:
+    """Rebuild the ELL layout from a BipartiteGraph's padded edge arrays
+    (inverting the by-user sort back to canonical order, dropping
+    padding)."""
+    sorted_u = np.asarray(graph.edge_u_by_u)
+    sorted_i = np.asarray(graph.edge_i_by_u)
+    sorted_w = np.asarray(graph.edge_w_by_u)
+    perm = np.asarray(graph.perm_by_u)
+    E = sorted_u.shape[0]
+    users = np.empty(E, sorted_u.dtype)
+    items = np.empty(E, sorted_i.dtype)
+    w = np.empty(E, sorted_w.dtype)
+    users[perm] = sorted_u
+    items[perm] = sorted_i
+    w[perm] = sorted_w
+    n = graph.n_edges
+    return build_ell_graph(users[:n], items[:n], w[:n], graph.n_users, graph.m_items, min_width)
+
+
+def ell_from_interactions(data, min_width: int = 4) -> EllGraph:
+    """Build the ELL graph straight from an InteractionData."""
+    from gsrs_tpu_torch.data.adjacency import normalized_edge_weights
+
+    w = normalized_edge_weights(
+        data.train_users, data.train_items, data.user_degrees, data.item_degrees
+    )
+    return build_ell_graph(
+        data.train_users.astype(np.int32),
+        data.train_items.astype(np.int32),
+        w,
+        data.n_users,
+        data.m_items,
+        min_width=min_width,
+    )
+
+
+# ----------------------------------------------------------------- apply
+
+
+def _apply_side(side: EllSide, x: torch.Tensor) -> torch.Tensor:
+    """out[r] = Σ_slots w · x[col] for every row r of this side."""
+    d = x.shape[-1]
+    partials = []
+    for b in side.buckets:
+        gathered = x.index_select(0, b.cols.reshape(-1)).reshape(*b.cols.shape, d)
+        partials.append(torch.einsum("nd,ndk->nk", b.w.to(x.dtype), gathered))
+    concat = torch.cat(partials + [x.new_zeros(1, d)], dim=0)
+    out = concat.index_select(0, side.assemble)
+    if side.extra_dst is not None:
+        # overflow chunks of split mega rows (see EllSide)
+        out.index_add_(0, side.extra_dst, concat.index_select(0, side.extra_pos))
+    return out
+
+
+def ell_propagate_layer(
+    graph: EllGraph, user_emb: torch.Tensor, item_emb: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LightGCN layer: new_user = W @ item_emb, new_item = W^T @ user_emb."""
+    return _apply_side(graph.by_user, item_emb), _apply_side(graph.by_item, user_emb)
