@@ -4,27 +4,45 @@
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
 
 1. Prints the card's name and power limit, and turns TF32 off.
-2. Builds every CUDA kernel of the serving path from ``gsrs_tpu_torch/csrc``.
+2. Builds every CUDA kernel from ``gsrs_tpu_torch/csrc``, one ``nvcc``
+   per source, all started together.
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card, in both layouts, at the serving shape (256 × 64 × 40,981), at
-   B = 13 and at m = 100, with random bitsets.
+   card. Masked scoring (K1/K2) in both layouts at the serving shape
+   (256 × 64 × 40,981), at B = 13 and at m = 100, with random bitsets. The
+   ELL gather-reduce (K4) on every bucket of both sides of the
+   Gowalla-shaped stand-in, fp32 and bf16, with and without an edge mask,
+   and at the TPU probe's shape against the probe's own oracle. Fused
+   Adam (K3) over 3 steps across an lr milestone, fp32 and bf16, on an
+   odd element count (37 × 11) and on the Gowalla-shaped tables.
 4. Serving phase, LightGCN at Gowalla's shape (a seeded power-law
    stand-in: 29,858 users × 40,981 items, average degree 27), 3 layers at
    dim 64, fp32, seeded weights: build the graph, propagate, build the
    Retriever and answer 4 requests of 256 users with top-20, in the
-   natural and the bit-plane layout. The launch counters are zeroed just
-   before and read just after; the results are checked against the plain
-   path on the card, and an npz export → load round trip must be
-   identical.
-5. Times the kernels (CUDA events, after a warm-up) beside their bound,
-   the plain version and one PyTorch call, and the request latency, the
-   device's busy share during requests (torch.profiler), the propagation
-   time and peak device memory.
+   natural and the bit-plane layout, checked against the plain path on
+   the card; an npz export → load round trip must be identical.
+5. Training phase, the same shape with a 20% holdout: through `Trainer`,
+   20 steps at batch 2048 under ``fused_adam="off"``, the same under
+   "pallas", 20 steps at 8192 under "off" and one full `train_epoch` at
+   8192 under "pallas". Then one seeded model and optimizer state on the
+   card and on the CPU take the same 3 triplet batches through
+   `run_steps`: parameters and losses must agree within 1e-5.
+6. Eval phase: `Trainer.evaluate` on the card and on the CPU from the
+   same parameters; recall, precision and NDCG@20 must agree within 1e-6.
+7. Quality drive (`gsrs_tpu_torch.drive`): 150 BPR steps on a clustered
+   200 × 300 set; loss < 0.1, valid triplets, no train positive in the
+   top-20, recall@20 > 0.3.
+8. Times each kernel (CUDA events, after a warm-up) beside its bound, its
+   plain version and one PyTorch call, and the end-to-end numbers: request
+   latency, propagation forward and forward + backward, ms per step,
+   seconds per epoch and per eval, peak device memory, and the device's
+   busy share during requests and train steps (torch.profiler).
 
-Prints ``{"kernels": [...]}`` on the line before the last and, as the
-last line, ``{"ok": true, "device": {...}}``. Any failed check raises and
-the script exits non-zero; without a CUDA card it exits 2 and prints no
-result. It imports nothing of JAX or of the JAX package.
+Each phase zeroes every kernel's launch counter just before it drives its
+path and fails unless the kernels of that path launched. Prints
+``{"kernels": [...]}`` on the line before the last and, as the last line,
+``{"ok": true, "device": {...}}``. Any failed check raises and the script
+exits non-zero; without a CUDA card it exits 2 and prints no result. It
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -44,13 +62,27 @@ GOWALLA_SHAPE = dict(n_users=29858, m_items=40981, avg_degree=27)
 BATCH, K, N_REQUESTS = 256, 20, 4
 ATOL = 1e-4  # kernel vs plain: fp32 sums in another order, |score| ≲ 30
 SWAP_TOL = 1e-5  # top-k boundary ties the two orders may rank either way
+ELL_ATOL = 1e-5  # K4 fp32: sums of O(1) in another order
+ELL_BF16_RTOL = 1e-2  # K4 bf16: one rounding of the fp32 sum (2^-9 relative) ...
+ELL_BF16_ATOL = 1e-5  # ... plus the fp32 order difference near zero
+ADAM_ATOL = 2e-6  # K3 fp32 over 3 steps at lr 1e-2
+TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: parameters and losses
+METRIC_ATOL = 1e-6  # card vs CPU eval metrics
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-KERNEL_SOURCE = "gsrs_tpu_torch/csrc/masked_scores.cu"
+KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam")
+SOURCES = {
+    "masked_scores": "gsrs_tpu_torch/csrc/masked_scores.cu",
+    "masked_scores_bitplane": "gsrs_tpu_torch/csrc/masked_scores.cu",
+    "ell_gather_reduce": "gsrs_tpu_torch/csrc/ell_gather_reduce.cu",
+    "fused_adam": "gsrs_tpu_torch/csrc/fused_adam.cu",
+}
 REPLACES = {
     "masked_scores": "gsrs_tpu/ops/pallas_kernels.py:65",
     "masked_scores_bitplane": "gsrs_tpu/ops/pallas_kernels.py:190",
+    "fused_adam": "gsrs_tpu/train/fused_adam.py:76",
+    "ell_gather_reduce": "tools/probe_pallas_gather.py:28",
 }
 
 
@@ -85,14 +117,36 @@ def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def roofline(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    fp32 operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound(B: int, d: int, m: int, W: int):
     """(bound_ms, bound_by) of one masked-scoring call on (B, d) users,
     (m, d) items and (B, W) bitset words: inputs read once, the (B, m)
     output written once, 2·B·m·d fp32 operations."""
-    nbytes = 4 * (B * d + m * d + B * W + B * m)
-    flops = 2 * B * m * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+    return roofline(4 * (B * d + m * d + B * W + B * m), 2 * B * m * d)
+
+
+def counters():
+    """Every kernel wrapper's launch-count dict."""
+    from gsrs_tpu_torch.ops import ell_kernel, scoring
+    from gsrs_tpu_torch.train import fused_adam
+
+    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES)
+
+
+def zero_counts() -> None:
+    for c in counters():
+        for name in c:
+            c[name] = 0
+
+
+def read_counts() -> dict:
+    return {name: n for c in counters() for name, n in c.items()}
 
 
 # ------------------------------------------------------------- kernel phase
@@ -174,8 +228,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
     log(f"[serve] data {data.n_users} users x {data.m_items} items, {data.train_size} edges")
 
     # ---- the main path, counted: graph → model → propagation → retriever → requests
-    for name in scoring.LAUNCHES:
-        scoring.LAUNCHES[name] = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     graph = build_graph(data)
@@ -192,12 +245,15 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
                          batch_size=BATCH, use_pallas_scoring="on", device=dev)
     planes = [bitplane.recommend(b, k=K) for b in batches]
     torch.cuda.synchronize()
-    launches = dict(scoring.LAUNCHES)
+    launches = read_counts()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     log(f"[serve] graph+ELL build {t_graph:.3f} s, retriever_from_model {t_retriever:.3f} s, "
         f"launches {launches}")
-    for name, n in launches.items():
-        check(n >= N_REQUESTS, f"{name} launched {n} times on the main path")
+    for name in scoring.LAUNCHES:
+        check(launches[name] >= N_REQUESTS, f"{name} launched {launches[name]} times on the "
+              "serving path")
+    check(launches["ell_gather_reduce"] >= 2 * model.cfg.num_layers,
+          "the propagation did not run through ell_gather_reduce")
 
     # ---- checks against the plain path on the card
     net = data.user_item_net
@@ -254,16 +310,16 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
     _, bp_items_t, bp_seen = bitplane._serve_tables
     bp_rows = bp_seen[torch.as_tensor(batches[0], device=dev)].contiguous()
     kernels = []
-    for name, it, bits, flag, err_key in (
-        ("masked_scores", ie, rows, False, "masked_scores"),
-        ("masked_scores_bitplane", bp_items_t, bp_rows, True, "masked_scores_bitplane"),
+    for name, it, bits, flag in (
+        ("masked_scores", ie, rows, False),
+        ("masked_scores_bitplane", bp_items_t, bp_rows, True),
     ):
         ms = cuda_ms(lambda: scoring.masked_scores(u, it, bits, bitplane=flag), reps=200, warmup=10)
         plain_ms = cuda_ms(lambda: masked_scores_reference(u, it, bits, bitplane=flag), reps=50)
         library_ms = cuda_ms(lambda: torch.matmul(u, it.T), reps=200, warmup=10)
         b_ms, b_by = bound(u.shape[0], d, it.shape[0], bits.shape[1])
         kernels.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=None, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             shape=[int(u.shape[0]), int(d), int(it.shape[0])],
@@ -274,7 +330,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
         f"recommend p50 {lat_p50_ms:.3f} ms for {BATCH} users; peak device memory "
         f"{peak_mib:.1f} MiB")
     return dict(kernels=kernels, prop_ms=prop_ms, recommend_p50_ms=lat_p50_ms,
-                peak_mib=peak_mib, recommend_device_busy=busy)
+                peak_mib=peak_mib, recommend_device_busy=busy, launches=launches)
 
 
 def profile_recommend(retriever, batches, rounds: int = 5) -> Optional[float]:
@@ -307,6 +363,435 @@ def profile_recommend(retriever, batches, rounds: int = 5) -> Optional[float]:
     return device_us / wall_us
 
 
+# ------------------------------------------------------ K3 and K4 on the card
+
+
+def training_data():
+    from gsrs_tpu_torch.data import synthetic
+
+    return synthetic.powerlaw(GOWALLA_SHAPE["n_users"], GOWALLA_SHAPE["m_items"],
+                              avg_degree=GOWALLA_SHAPE["avg_degree"], seed=SEED,
+                              holdout_frac=0.2)
+
+
+def ell_side_check(side, x, mask, what: str) -> float:
+    """K4 on one side against the plain version, bucket by bucket → max
+    abs error (fp32) or max error over the allowed error (bf16)."""
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce, gather_reduce_reference
+
+    got = gather_reduce(side.table, x, mask)
+    torch.cuda.synchronize()
+    check(got.dtype == x.dtype, f"{what}: output dtype {got.dtype}")
+    row0, worst = 0, 0.0
+    for cols, w, eidx in side.table.buckets:
+        n_b = cols.shape[0]
+        want = gather_reduce_reference(cols, w, x.float(), mask, eidx)
+        err = (got[row0:row0 + n_b].float() - want).abs()
+        if x.dtype == torch.float32:
+            worst = max(worst, float(err.max()))
+        else:
+            worst = max(worst, float((err / (ELL_BF16_RTOL * want.abs() + ELL_BF16_ATOL)).max()))
+        row0 += n_b
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    if x.dtype == torch.float32:
+        check(worst <= ELL_ATOL, f"{what}: max abs error {worst} > {ELL_ATOL}")
+    else:
+        check(worst <= 1.0, f"{what}: error {worst}x the bf16 limit")
+    return worst
+
+
+def probe_check(dev) -> None:
+    """K4 at the TPU probe's default shape (N=65,536, D=64, M=262,144,
+    B=256, the probe's seeds) with w = 1 and cols = idx.reshape(M/B, B),
+    summed over d, against the probe's oracle np.add.reduceat. rtol 1e-4
+    as the probe; atol 1e-3 (1e-5 of the sums' scale of ~128) for the few
+    sums that land near 0, where the order of summation decides."""
+    from gsrs_tpu_torch.ops.ell_kernel import BucketTable, gather_reduce
+
+    N, D, M, B = 1 << 16, 64, 1 << 18, 256
+    x = np.random.default_rng(0).normal(size=(N, D)).astype(np.float32)
+    idx = np.random.default_rng(1).integers(0, N, M).astype(np.int32)
+    cols = torch.from_numpy(idx.reshape(M // B, B)).to(dev)
+    table = BucketTable([(cols, torch.ones(M // B, B, device=dev),
+                          torch.zeros(M // B, B, dtype=torch.int32, device=dev))])
+    xt = torch.from_numpy(x).to(dev)
+    out = gather_reduce(table, xt).sum(dim=1).cpu().numpy()
+    ref = np.add.reduceat(x[idx].sum(axis=1), np.arange(0, M, B))
+    check(np.allclose(out, ref, rtol=1e-4, atol=1e-3), "probe shape: kernel != probe oracle")
+    us = 1e3 * cuda_ms(lambda: gather_reduce(table, xt), reps=50)
+    log(f"[kernel] ell_gather_reduce at the probe's shape: matches np.add.reduceat "
+        f"(max rel err {float(np.max(np.abs(out - ref) / np.maximum(np.abs(ref), 1))):.2e}); "
+        f"{us:.1f} us/launch, {M / us:.0f} M gathered rows/s")
+
+
+def kernel_phase_train(dev, data) -> dict:
+    """K4 and K3 against their plain versions on the card → {kernel: max
+    abs err in fp32 at the main path's shapes}."""
+    from gsrs_tpu_torch.config import TrainConfig
+    from gsrs_tpu_torch.ops.ell import ell_from_interactions
+    from gsrs_tpu_torch.train.fused_adam import FusedAdam
+    from gsrs_tpu_torch.train.optim import lr_schedule
+
+    ell = ell_from_interactions(data).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tables = {"user": torch.randn(data.n_users, 64, device=dev, generator=g),
+              "item": torch.randn(data.m_items, 64, device=dev, generator=g)}
+    n_edges = data.train_size
+    mask = (torch.rand(n_edges, device=dev, generator=g) < 0.6).float() / 0.6
+    ell_err = 0.0
+    for side_name, side, x in (("by_user", ell.by_user, tables["item"]),
+                               ("by_item", ell.by_item, tables["user"])):
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (None, mask):
+                what = (f"ell_gather_reduce {side_name} {len(side.buckets)} buckets "
+                        f"{str(dtype)[6:]} {'masked' if m is not None else 'unmasked'}")
+                err = ell_side_check(side, x.to(dtype), m, what)
+                log(f"[kernel] {what}: max {'abs err' if dtype == torch.float32 else 'err/limit'}"
+                    f" {err:.3e}")
+                if dtype == torch.float32:
+                    ell_err = max(ell_err, err)
+    probe_check(dev)
+
+    sched = lr_schedule(TrainConfig(lr=1e-2, use_scheduler=True, sched_milestones=(2,),
+                                    sched_gamma=0.5), 1)
+    adam_err = 0.0
+    for shape in ((37, 11), (data.n_users, 64), (data.m_items, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            p0 = (0.1 * torch.randn(shape, device=dev, generator=g)).to(dtype)
+            grads = [torch.randn(shape, device=dev, generator=g).to(dtype) for _ in range(3)]
+            out = []
+            for backend in ("pallas", "jnp"):
+                p = torch.nn.Parameter(p0.clone())
+                opt = FusedAdam(schedule=sched, backend=backend)
+                st = opt.init({"p": p})
+                for gr in grads:
+                    p.grad = gr.clone()
+                    st = opt.step({"p": p}, st)
+                out.append((p.detach(), st.mu["p"], st.nu["p"]))
+            torch.cuda.synchronize()
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*out))
+            check(all(a.dtype == b.dtype == dtype for a, b in zip(*out)),
+                  f"fused_adam {shape} {dtype}: dtypes differ")
+            if dtype == torch.float32:
+                check(err <= ADAM_ATOL, f"fused_adam {shape}: max abs err {err} > {ADAM_ATOL}")
+                if shape[1] == 64:
+                    adam_err = max(adam_err, err)
+            log(f"[kernel] fused_adam {shape} {str(dtype)[6:]} 3 steps across a milestone: "
+                f"max abs err {err:.3e}")
+    return {"ell_gather_reduce": ell_err, "fused_adam": adam_err}
+
+
+# ----------------------------------------------------------- training phase
+
+
+def make_trainer(dev, data, graph, ell, batch: int, fused: str, model=None):
+    from gsrs_tpu_torch.config import EvalConfig, ExperimentConfig, ModelConfig, TrainConfig
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.train.trainer import Trainer
+
+    cfg = ExperimentConfig(model=ModelConfig(num_layers=3, embedding_dim=64),
+                           train=TrainConfig(batch_size=batch, fused_adam=fused, seed=SEED),
+                           eval=EvalConfig(topks=(20,)))
+    if model is None:
+        model = build_model(cfg.model, graph, ell=ell, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    return Trainer(cfg, data, graph, model, device=dev)
+
+
+def timed_steps(trainer, state, steps: int):
+    """``steps`` steps through train_epoch → (state, ms per step, loss)."""
+    trainer.epoch_samples = steps * trainer.cfg.train.batch_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = trainer.train_epoch(state)  # reads the loss: ends synchronized
+    return state, 1e3 * (time.perf_counter() - t0) / steps, loss
+
+
+def training_phase(dev, data) -> dict:
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.ops.ell import ell_from_interactions
+
+    graph, ell = build_graph(data), ell_from_interactions(data)
+    log(f"[train] data {data.n_users} users x {data.m_items} items, {data.train_size} train "
+        f"edges, {len(data.test_dict)} test users")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = None
+    trainers, states = {}, {}
+    steps_run = 0
+    configs = ((2048, "off"), (2048, "pallas"), (8192, "off"), (8192, "pallas"))
+    for batch, fused in configs:  # warm-up: 3 steps each
+        tr = trainers[(batch, fused)] = make_trainer(dev, data, graph, ell, batch, fused, model)
+        model = tr.model
+        states[(batch, fused)], _, _ = timed_steps(tr, tr.init_state(), 3)
+        steps_run += 3
+    # 20 timed steps per config, in turns: forward order, then backward
+    ms = {c: [] for c in configs[:3]}
+    for c in configs[:3] + configs[2::-1]:
+        tr = trainers[c]  # all four share one model, so its parameters keep training
+        states[c], t, loss = timed_steps(tr, states[c], 20)
+        ms[c].append(t)
+        steps_run += 20
+        check(np.isfinite(loss), f"loss {loss} at batch {c[0]} {c[1]}")
+    for (batch, fused), ts in ms.items():
+        log(f"[train] batch {batch} fused_adam={fused}: {ts[0]:.3f} / {ts[1]:.3f} ms/step over "
+            f"20 steps (two turns)")
+    tr = trainers[(8192, "pallas")]
+    tr.epoch_samples = None  # a full epoch: train_size triplets
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss0 = tr.train_epoch(state)
+    epoch_s = time.perf_counter() - t0
+    steps_run += tr.steps_per_epoch
+    state, loss1 = tr.train_epoch(state)
+    steps_run += tr.steps_per_epoch
+    ms[(8192, "pallas")] = [1e3 * epoch_s / tr.steps_per_epoch]
+    launches = read_counts()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    log(f"[train] batch 8192 fused_adam=pallas: one epoch of {tr.steps_per_epoch} steps in "
+        f"{epoch_s:.3f} s ({ms[(8192, 'pallas')][0]:.3f} ms/step); epoch losses {loss0:.5f} -> "
+        f"{loss1:.5f}; {steps_run} steps on the path; launches {launches}")
+    check(np.isfinite(loss0) and loss1 < loss0, f"epoch losses {loss0} -> {loss1} do not fall")
+    check(launches["ell_gather_reduce"] >= 12 * steps_run,
+          f"ell_gather_reduce launched {launches['ell_gather_reduce']} times in {steps_run} steps")
+    check(launches["fused_adam"] >= 2 * (2 * 20 + 2 * 3 + 2 * tr.steps_per_epoch),
+          f"fused_adam launched {launches['fused_adam']} times")
+    return dict(data=data, graph=graph, ell=ell, trainer=tr, state=state, ms=ms,
+                epoch_s=epoch_s, launches=launches, steps=steps_run, peak_mib=peak_mib)
+
+
+def card_vs_cpu_phase(dev, train: dict) -> None:
+    """One seeded model and optimizer state on the card and on the CPU,
+    the same 3 triplet batches through run_steps (kernels on the card,
+    plain versions on the CPU)."""
+    from gsrs_tpu_torch.ops.sampling import sample_epoch
+
+    data, graph, ell = train["data"], train["graph"], train["ell"]
+    runs = []
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batches = [t.cpu() for t in sample_epoch(g, train["trainer"].sampler_state, 3 * 2048, 2048)]
+    for device in (dev, torch.device("cpu")):
+        tr = make_trainer(device, data, graph, ell, 2048, "pallas")
+        state = tr.init_state()
+        t0 = time.perf_counter()
+        state, losses = tr.run_steps(state, *batches)
+        losses = losses.cpu()
+        runs.append((losses, {k: v.detach().cpu() for k, v in state.params.items()}))
+        log(f"[train] 3 run_steps on {device}: losses {losses.tolist()} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    (l_card, p_card), (l_cpu, p_cpu) = runs
+    loss_err = float((l_card - l_cpu).abs().max())
+    param_err = max(float((p_card[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    check(loss_err <= TRAIN_ATOL, f"card vs CPU losses differ by {loss_err}")
+    check(param_err <= TRAIN_ATOL, f"card vs CPU parameters differ by {param_err}")
+    log(f"[train] card vs CPU after 3 steps: max loss diff {loss_err:.2e}, max parameter diff "
+        f"{param_err:.2e} (limit {TRAIN_ATOL})")
+
+
+def eval_phase(dev, train: dict) -> dict:
+    """Trainer.evaluate on the card (counted), then the CPU from the same
+    parameters: the trained ones, and the seeded initial ones with top-2000
+    as well as top-20. This data holds out each user's least popular item,
+    which a model that ranks by popularity never puts in its top-20, so
+    the trained metrics are 0; at the initial parameters the top-2000 hits
+    many held-out items, and card and CPU must find the same ones."""
+    from gsrs_tpu_torch.config import EvalConfig
+    from gsrs_tpu_torch.train.evaluator import Evaluator
+
+    tr, state = train["trainer"], train["state"]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = tr.evaluate(state)
+    eval_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches["masked_scores"] >= 1, "the eval did not score through masked_scores")
+    check(launches["ell_gather_reduce"] >= 2 * 3, "the eval did not propagate through K4")
+    t0 = time.perf_counter()
+    tr.evaluate(state)
+    eval2_s = time.perf_counter() - t0
+    args = (train["data"], train["graph"], train["ell"], 8192, "pallas")
+    k_wide = min(2000, train["data"].m_items // 2)
+    wide = EvalConfig(topks=(20, k_wide))
+    models = [make_trainer(d, *args).model for d in (dev, torch.device("cpu"))]
+    pairs = {"initial": tuple(Evaluator(train["data"], m, wide, device=m.user_emb.device).run()
+                              for m in models)}
+    cpu_tr = make_trainer(torch.device("cpu"), *args)
+    cpu_tr.model.load_state_dict({k: v.cpu() for k, v in tr.model.state_dict().items()})
+    pairs["trained"] = (card, cpu_tr.evaluator.run())
+    for what, (on_card, on_cpu) in pairs.items():
+        check(set(on_card) == set(on_cpu), "metric names differ")
+        check(all(np.isfinite(v) for v in on_card.values()), "non-finite metrics")
+        worst = max(abs(on_card[k] - on_cpu[k]) for k in on_card)
+        check(worst <= METRIC_ATOL, f"{what}: card vs CPU metrics differ by {worst}: "
+              f"{on_card} vs {on_cpu}")
+        log(f"[eval] {what} parameters: card {on_card}; CPU {on_cpu}; max diff {worst:.2e}")
+    check(pairs["initial"][0][f"recall@{k_wide}"] > 0,
+          "no hit at all: the comparison shows nothing")
+    log(f"[eval] Trainer.evaluate {eval_s:.3f} s first, {eval2_s:.3f} s warm; "
+        f"launches {launches}")
+    return dict(metrics=card, eval_s=eval2_s, launches=launches)
+
+
+def drive_phase(dev) -> dict:
+    from gsrs_tpu_torch.drive import drive
+
+    t0 = time.perf_counter()
+    out = drive(dev)
+    log(f"[drive] {out} ({time.perf_counter() - t0:.2f} s)")
+    check(out["loss_last"] < 0.1, f"drive loss {out['loss_last']} >= 0.1")
+    check(out["bad_triplets"] == 0, "the drive sampled invalid triplets")
+    check(out["leaked_positives"] == 0, "a train positive reached the drive's top-20")
+    check(out["recall20"] > 0.3, f"drive recall@20 {out['recall20']} <= 0.3")
+    return out
+
+
+# ----------------------------------------------------------------- timings
+
+
+def side_csr(side, n_src: int):
+    """The side's W as a CSR matrix (n_rows × n_src) over its real edges."""
+    rows, cols, vals = [], [], []
+    for b in side.buckets:
+        keep = b.w != 0
+        rows.append(b.rows.long()[:, None].expand_as(b.cols)[keep])
+        cols.append(b.cols.long()[keep])
+        vals.append(b.w[keep])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (side.n_rows, n_src),
+                                  check_invariants=True).coalesce()
+    return coo.to_sparse_csr()
+
+
+def time_ell(model, launches: int, per_step: float, err: float) -> dict:
+    """K4 per launch, averaged over the two sides of a forward layer at
+    the trained model's tables."""
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce, gather_reduce_reference
+
+    d = model.cfg.embedding_dim
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    with torch.no_grad():
+        for name, side, x in (("by_user", model.ell.by_user, model.item_emb.detach()),
+                              ("by_item", model.ell.by_item, model.user_emb.detach())):
+            table = side.table
+            out = torch.empty(table.n_rows + 1, d, device=x.device)
+
+            def plain():
+                row0 = 0
+                for cols, w, eidx in table.buckets:
+                    out[row0:row0 + cols.shape[0]] = gather_reduce_reference(cols, w, x)
+                    row0 += cols.shape[0]
+
+            csr = side_csr(side, x.shape[0])
+            slots = sum(c.numel() for c, _, _ in table.buckets)
+            nnz = csr.values().numel()
+            b_ms, b_by = roofline(8 * slots + 4 * x.numel() + 4 * table.n_rows * d, 2 * nnz * d)
+            t = dict(ms=cuda_ms(lambda: gather_reduce(table, x, out=out), reps=50),
+                     plain_ms=cuda_ms(plain, reps=10),
+                     library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), reps=50),
+                     bound_ms=b_ms)
+            bound_by.add(b_by)
+            log(f"[time] ell_gather_reduce {name}: {len(table.buckets)} buckets, {slots} slots "
+                f"({nnz} edges), {t['ms'] * 1e3:.1f} us/launch, bound {b_ms * 1e3:.1f} us "
+                f"({b_by}), plain {t['plain_ms'] * 1e3:.1f} us, torch.sparse.mm (CSR) "
+                f"{t['library_ms'] * 1e3:.1f} us")
+            for k in tot:
+                tot[k] += t[k] / 2
+    return dict(name="ell_gather_reduce", route="cuda", source=SOURCES["ell_gather_reduce"],
+                replaces=REPLACES["ell_gather_reduce"], launches=launches, max_abs_err=err,
+                bound_by="/".join(sorted(bound_by)), launches_per_step=per_step,
+                shape=[int(model.n_users), int(model.m_items), d], **tot)
+
+
+def time_adam(model, launches: int, per_step: float, err: float) -> dict:
+    """K3 per launch, averaged over the two tables of a step."""
+    from gsrs_tpu_torch.train.fused_adam import FusedAdam, _adam_math, fused_adam_
+
+    opt = FusedAdam(schedule=lambda c: 1e-3, backend="pallas")
+    lr, c1, c2 = opt.scalars(10)
+    leaves = []
+    for p in (model.user_emb, model.item_emb):
+        p = p.detach().clone()
+        leaves.append((p, torch.zeros_like(p), torch.zeros_like(p), torch.randn_like(p) * 1e-3))
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for p, m, v, g in leaves:
+        tot["ms"] += cuda_ms(lambda: fused_adam_(p, m, v, g, lr, c1, c2, 0.9, 0.999, 1e-8),
+                             reps=100) / 2
+
+        def plain():
+            for dst, src in zip((p, m, v), _adam_math(p, m, v, g, lr, c1, c2, 0.9, 0.999, 1e-8)):
+                dst.copy_(src)
+
+        tot["plain_ms"] += cuda_ms(plain, reps=20) / 2
+        tot["bound_ms"] += roofline(28 * p.numel(), 12 * p.numel())[0] / 2
+    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
+    for q, (_, _, _, g) in zip(params, leaves):
+        q.grad = g.clone()
+    lib = torch.optim.Adam(params, lr=1e-3, fused=True)
+    tot["library_ms"] = cuda_ms(lib.step, reps=100) / 2
+    n = sum(p.numel() for p, _, _, _ in leaves)
+    log(f"[time] fused_adam: {tot['ms'] * 1e3:.1f} us/launch (2 launches, {n} elements a step), "
+        f"bound {tot['bound_ms'] * 1e3:.1f} us (bytes), plain {tot['plain_ms'] * 1e3:.1f} us, "
+        f"torch.optim.Adam(fused=True) {2 * tot['library_ms'] * 1e3:.1f} us a step")
+    return dict(name="fused_adam", route="cuda", source=SOURCES["fused_adam"],
+                replaces=REPLACES["fused_adam"], launches=launches, max_abs_err=err,
+                bound_by="bytes", launches_per_step=per_step,
+                shape=[int(model.n_users) + int(model.m_items), int(model.cfg.embedding_dim)],
+                **tot)
+
+
+def time_training(dev, train: dict) -> dict:
+    """Propagation forward and forward + backward, and the device's busy
+    share of train steps (torch.profiler, device-side events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsrs_tpu_torch.ops.sampling import sample_epoch
+
+    tr = train["trainer"]
+    model = tr.model
+    with torch.no_grad():
+        fwd_ms = cuda_ms(model.propagate, reps=10, warmup=2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cu = torch.randn(model.n_users, 64, device=dev, generator=g)
+    ci = torch.randn(model.m_items, 64, device=dev, generator=g)
+
+    def fwd_bwd():
+        u, i = model.propagate()
+        ((u * cu).sum() + (i * ci).sum()).backward()
+        model.zero_grad(set_to_none=True)
+
+    fb_ms = cuda_ms(fwd_bwd, reps=10, warmup=2)
+    log(f"[time] propagation, 3 layers at dim 64: forward {fwd_ms:.3f} ms, forward + backward "
+        f"{fb_ms:.3f} ms")
+
+    batches = sample_epoch(g, tr.sampler_state, 10 * 8192, 8192)
+    state = train["state"]
+    state, _ = tr.run_steps(state, *(b[:2] for b in batches))  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = tr.run_steps(state, *batches)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(t for _, t, _ in rows)
+    busy = device_us / wall_us if device_us else None
+    if busy is None:
+        log("[profile] the profiler saw no device time: busy share not measured")
+    else:
+        log(f"[profile] train step at batch 8192 (fused_adam=pallas): {wall_us / 10:.1f} us wall, "
+            f"{device_us / 10:.1f} us device per step (busy share {busy:.3f})")
+        for key, t, n in sorted(rows, key=lambda r: -r[1])[:12]:
+            log(f"[profile]   {t / 10:9.1f} us/step  {n / 10:6.1f} calls/step  {key[:80]}")
+    return dict(fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, train_device_busy=busy,
+                train_step_device_us=device_us / 10 if device_us else None,
+                train_step_wall_us=wall_us / 10)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -321,24 +806,59 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    build_logs = build_kernels(["masked_scores"])
-    log(f"[build] {time.perf_counter() - t0:.1f} s -> {library_path('masked_scores')}")
+    build_logs = build_kernels(KERNELS)
+    log(f"[build] {time.perf_counter() - t0:.1f} s -> "
+        f"{', '.join(library_path(k) for k in KERNELS)}")
     for name, text in build_logs.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
 
+    data = training_data()
     errs = kernel_phase(dev)
+    errs.update(kernel_phase_train(dev, data))
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
-    result = serving_phase(dev, GOWALLA_SHAPE, out_dir)
-    for k in result["kernels"]:
+    serve = serving_phase(dev, GOWALLA_SHAPE, out_dir)
+    train = training_phase(dev, data)
+    card_vs_cpu_phase(dev, train)
+    ev = eval_phase(dev, train)
+    drv = drive_phase(dev)
+    times = time_training(dev, train)
+
+    kernels = serve["kernels"]
+    for k in kernels:
         k["max_abs_err"] = errs[k["name"]]
-    log(json.dumps({"card": card, "propagation_ms": result["prop_ms"],
-                    "recommend_p50_ms": result["recommend_p50_ms"],
-                    "recommend_device_busy": result["recommend_device_busy"],
-                    "peak_device_mib": result["peak_mib"]}))
-    log(json.dumps({"kernels": result["kernels"]}))
+        # serving requests plus the training run's evals
+        k["launches"] += ev["launches"][k["name"]]
+    # launches per step: fused_adam counts its "pallas" steps only (3 warm-up
+    # and 2 x 20 timed at 2048, 3 warm-up and two epochs at 8192; the "off"
+    # steps use torch Adam)
+    pallas_steps = 46 + 2 * train["trainer"].steps_per_epoch
+    per_step = {"ell_gather_reduce": train["launches"]["ell_gather_reduce"] / train["steps"],
+                "fused_adam": train["launches"]["fused_adam"] / pallas_steps}
+    main_launches = {name: serve["launches"][name] + train["launches"][name]
+                     + ev["launches"][name] for name in per_step}
+    for name, timer in (("fused_adam", time_adam), ("ell_gather_reduce", time_ell)):
+        kernels.append(timer(train["trainer"].model, main_launches[name], per_step[name],
+                             errs[name]))
+    ms = train["ms"]
+    log(json.dumps({
+        "card": card, "propagation_ms": serve["prop_ms"],
+        "recommend_p50_ms": serve["recommend_p50_ms"],
+        "recommend_device_busy": serve["recommend_device_busy"],
+        "peak_device_mib_serving": serve["peak_mib"],
+        "train_ms_per_step": {f"{b}_{f}": v for (b, f), v in ms.items()},
+        "epoch_s_8192": train["epoch_s"], "eval_s": ev["eval_s"], "eval_metrics": ev["metrics"],
+        "propagation_fwd_ms": times["fwd_ms"], "propagation_fwd_bwd_ms": times["fwd_bwd_ms"],
+        "train_device_busy": times["train_device_busy"],
+        "train_step_device_us": times["train_step_device_us"],
+        "train_step_wall_us": times["train_step_wall_us"],
+        "peak_device_mib_training": train["peak_mib"], "drive": drv,
+        "smoke_s": time.perf_counter() - t_start,
+    }))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

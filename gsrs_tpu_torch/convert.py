@@ -1,12 +1,14 @@
-"""Carry a JAX LightGCN parameter pytree across to the port.
+"""Carry a JAX LightGCN parameter pytree, and its optimizer state, across
+to the port.
 
 JAX's pop-gate layers compute ``x @ W + b`` with W of shape
 (fan_in, fan_out); `nn.Linear` computes ``x @ weight.T + bias`` with
-weight (fan_out, fan_in), so the weights are transposed."""
+weight (fan_out, fan_in), so the weights, and their Adam moments, are
+transposed."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -24,6 +26,11 @@ _POP_GATE = {
 }
 
 
+def _tensor(value, transpose: bool, device: torch.device) -> torch.Tensor:
+    a = np.asarray(value, dtype=np.float32)
+    return torch.from_numpy(np.array(a.T if transpose else a, order="C")).to(device)
+
+
 def params_from_jax(
     params: Mapping[str, np.ndarray], cfg: ModelConfig, device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
@@ -39,9 +46,68 @@ def params_from_jax(
     state = {}
     for key, value in params.items():
         name, transpose = names[key]
-        a = np.asarray(value, dtype=np.float32)
-        state[name] = torch.from_numpy(np.array(a.T if transpose else a, order="C")).to(device)
+        state[name] = _tensor(value, transpose, device)
     d = cfg.embedding_dim
     if state["user_emb"].shape[1] != d or state["item_emb"].shape[1] != d:
         raise ValueError(f"embedding width differs from embedding_dim={d}")
     return state
+
+
+def _adam_moments(opt_state: Any):
+    """The (count, mu, nu) of a JAX Adam state: `FusedAdamState` itself,
+    or the `ScaleByAdamState` inside optax's chain tuple."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_moments(part)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state: Any, cfg, model):
+    """A JAX trainer's optimizer state → the port's, for ``model`` (whose
+    parameters must already hold the matching values, e.g. from
+    `params_from_jax`) under ``cfg`` (an ExperimentConfig).
+
+    optax's ``ScaleByAdamState`` (``fused_adam="off"``) becomes the
+    state of a `torch.optim.Adam` over the model's parameters (exp_avg,
+    exp_avg_sq and the step count); JAX's ``FusedAdamState`` becomes the
+    port's `FusedAdamState`. Moments go to the model's device."""
+    from gsrs_tpu_torch.train.fused_adam import FusedAdamState
+    from gsrs_tpu_torch.train.optim import AdamState, ScheduledAdam, make_optimizer
+
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError(f"no Adam state (count, mu, nu) in {type(opt_state).__name__}")
+    names = dict(_EMBEDDINGS, **(_POP_GATE if cfg.model.use_pop_gate else {}))
+    if set(adam.mu) != set(names) or set(adam.nu) != set(names):
+        raise ValueError(f"moment names {sorted(adam.mu)} do not match the config's "
+                         f"{sorted(names)}")
+    params = dict(model.named_parameters())
+    device = model.user_emb.device
+    count = int(np.asarray(adam.count))
+
+    def moments(tree):
+        out = {}
+        for key, (name, transpose) in names.items():
+            t = _tensor(tree[key], transpose, device)
+            if t.shape != params[name].shape:
+                raise ValueError(f"{key}: moment shape {tuple(t.shape)} vs parameter "
+                                 f"{tuple(params[name].shape)}")
+            out[name] = t.to(params[name].dtype)
+        return out
+
+    mu, nu = moments(adam.mu), moments(adam.nu)
+    optimizer, _ = make_optimizer(cfg.train, 1)
+    if not isinstance(optimizer, ScheduledAdam):
+        return FusedAdamState(count, mu, nu)
+    state = optimizer.init(params)
+    for name, p in params.items():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name],
+            "exp_avg_sq": nu[name],
+        }
+    return AdamState(count, state.optimizer)

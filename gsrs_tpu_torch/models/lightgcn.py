@@ -3,25 +3,30 @@
 The module holds the embedding tables (and, with the pop gate, its four
 `nn.Linear` layers) as parameters, and the ELL layout of the normalized
 bipartite graph on the same device. `propagate` runs K layers and the
-mean over layers 0..K; `final_embeddings` adds the pop-gate fusion.
+mean over layers 0..K, with ELL edge dropout when given a generator;
+`final_embeddings` adds the pop-gate fusion; `bpr_loss` is the BPR loss
+with the reference's L2 term (``aux["reg"]``, scaled by the trainer's
+decay) and the gate-entropy bonus. Gradients flow through the ELL
+layer's scatter-free backward (`gsrs_tpu_torch.ops.ell`).
 
-Ported so far: the ELL forward and the pop gate, which is what serving
-runs. Other layouts, item-item smoothing, edge dropout and the BPR loss
-belong to later slices (ROADMAP.md, queue A) and raise here.
+Other layouts and item-item smoothing belong to later items of
+ROADMAP.md queue A and raise here.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gsrs_tpu_torch.config import ModelConfig
 from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
 from gsrs_tpu_torch.ops.ell import EllGraph, ell_from_graph, ell_propagate_layer
+from gsrs_tpu_torch.ops.spmm import edge_keep_mask
 
 
 def popularity_scalar(item_degrees: torch.Tensor) -> torch.Tensor:
@@ -54,16 +59,17 @@ class LightGCN(nn.Module):
             )
         if cfg.spmm_mode != "ell":
             raise NotImplementedError(
-                f"spmm_mode='{cfg.spmm_mode}' is not ported yet: 'tiled' comes with the "
-                "training slice and 'hybrid'/'segment' with the LightGCN extensions "
-                "(ROADMAP.md queue A)"
+                f"spmm_mode='{cfg.spmm_mode}' is not ported yet: 'tiled' is ROADMAP.md A2b "
+                "(tiled layout and the bench.py configuration), 'hybrid' and 'segment' are "
+                "A3 (LightGCN extensions)"
             )
         if cfg.use_item_item:
             raise NotImplementedError(
-                "use_item_item is not ported yet (ROADMAP.md queue A, LightGCN extensions)"
+                "use_item_item is not ported yet (ROADMAP.md A3, LightGCN extensions)"
             )
         device = resolve_device(device)
         self.cfg = cfg
+        self.graph = graph
         self.n_users = graph.n_users
         self.m_items = graph.m_items
         if ell is None and cfg.num_layers > 0:
@@ -99,17 +105,24 @@ class LightGCN(nn.Module):
                     p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
 
     # ----------------------------------------------------------- propagation
-    def propagate(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def propagate(
+        self, dropout_generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """K-layer propagation + mean over layers 0..K, as fp32. With
         ``bf16_compute`` the layers run in bf16 and only the mean is cast
-        back, where the JAX package casts."""
+        back, where the JAX package casts. With ``cfg.dropout`` and a
+        ``dropout_generator`` (on the model's device), one edge keep mask
+        is drawn in canonical edge order and used by every layer."""
         u, i = self.user_emb, self.item_emb
         if self.cfg.bf16_compute:
             u, i = u.to(torch.bfloat16), i.to(torch.bfloat16)
+        keep = None
+        if dropout_generator is not None and self.cfg.dropout:
+            keep = edge_keep_mask(dropout_generator, self.graph, self.cfg.keep_prob, u.dtype)
         acc_u, acc_i = u, i
         cur_u, cur_i = u, i
         for _ in range(self.cfg.num_layers):
-            cur_u, cur_i = ell_propagate_layer(self.ell, cur_u, cur_i)
+            cur_u, cur_i = ell_propagate_layer(self.ell, cur_u, cur_i, keep)
             acc_u = acc_u + cur_u
             acc_i = acc_i + cur_i
         scale = 1.0 / (self.cfg.num_layers + 1)
@@ -129,13 +142,59 @@ class LightGCN(nn.Module):
         return gate * all_items + (1.0 - gate) * pop_vec, gate[:, 0]
 
     # ------------------------------------------------------------ embeddings
-    def final_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    def final_embeddings(
+        self, dropout_generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """(all_users, item_embeddings_for_scoring, gates)."""
-        all_users, all_items = self.propagate()
+        all_users, all_items = self.propagate(dropout_generator)
         if self.cfg.use_pop_gate:
             items, gate = self._fuse(all_items)
             return all_users, items, gate
         return all_users, all_items, None
+
+    # ------------------------------------------------------------------ loss
+    def bpr_loss(
+        self,
+        users: torch.Tensor,
+        pos: torch.Tensor,
+        neg: torch.Tensor,
+        dropout_generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, aux): loss = BPR − gate_entropy_coeff·entropy; aux["reg"]
+        is the L2 term the trainer scales by its decay, aux["bpr"] the BPR
+        term (and aux["gate_entropy"] with the pop gate)."""
+        all_users, items, gate = self.final_embeddings(dropout_generator)
+        return self._pairwise_bpr(all_users, items, gate, users, pos, neg)
+
+    def _pairwise_bpr(
+        self,
+        all_users: torch.Tensor,
+        items: torch.Tensor,
+        gate: Optional[torch.Tensor],
+        users: torch.Tensor,
+        pos: torch.Tensor,
+        neg: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """BPR + reg (+ gate-entropy bonus) on propagated and fused
+        embeddings. reg_mode 'ego' regularizes the batch's raw table rows,
+        any other value (the default 'propagated') its propagated rows;
+        both 0.5·Σ‖·‖²/B."""
+        u, pe, ne = all_users[users], items[pos], items[neg]
+        pos_scores = (u * pe).sum(dim=1)
+        neg_scores = (u * ne).sum(dim=1)
+        bpr = -F.logsigmoid(pos_scores - neg_scores).mean()
+        batch = users.shape[0]
+        if self.cfg.reg_mode == "ego":
+            u, pe, ne = self.user_emb[users], self.item_emb[pos], self.item_emb[neg]
+        reg = 0.5 * ((u * u).sum() + (pe * pe).sum() + (ne * ne).sum()) / batch
+        loss = bpr
+        aux = {"bpr": bpr, "reg": reg}
+        if gate is not None:
+            g = torch.clamp(torch.cat([gate[pos], gate[neg]]), 1e-6, 1.0 - 1e-6)
+            entropy = -(g * torch.log(g) + (1 - g) * torch.log(1 - g)).mean()
+            loss = loss - self.cfg.gate_entropy_coeff * entropy
+            aux["gate_entropy"] = entropy
+        return loss, aux
 
     # ----------------------------------------------------------------- heads
     def users_rating(self, users: torch.Tensor) -> torch.Tensor:

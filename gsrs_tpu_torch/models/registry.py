@@ -13,7 +13,7 @@ from gsrs_tpu_torch.models.lightgcn import LightGCN
 from gsrs_tpu_torch.ops.ell import EllGraph
 
 MODELS = {"lgn": LightGCN}
-# registered in the JAX package, ported with the graph zoo (ROADMAP.md queue A)
+# registered in the JAX package, ported with the graph zoo (ROADMAP.md A5)
 NOT_PORTED = ("mf", "ngcf", "xsimgcl", "ultragcn")
 
 
@@ -27,7 +27,7 @@ def build_model(
     """Build the configured model on ``device`` (default ``cuda:0``)."""
     if cfg.model in NOT_PORTED:
         raise NotImplementedError(
-            f"model '{cfg.model}' is not ported yet (ROADMAP.md queue A, graph zoo)"
+            f"model '{cfg.model}' is not ported yet (ROADMAP.md A5, graph zoo)"
         )
     if cfg.model not in MODELS:
         raise ValueError(

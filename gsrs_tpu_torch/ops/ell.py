@@ -1,26 +1,37 @@
-"""Bucketed-ELL propagation, forward only (port of `gsrs_tpu.ops.ell`).
+"""Bucketed-ELL propagation, forward and backward (port of `gsrs_tpu.ops.ell`).
 
 Each direction of the normalized bipartite graph is a set of
 degree-bucketed rectangles: bucket row ``rows[i]`` aggregates
-``cols[i, :]`` with weights ``w[i, :]``, so one SpMM is a gather
-(`index_select`) and a weighted reduction (`einsum`) per bucket, and the
-output rows are assembled by one more gather. Padding slots carry weight
-0 and column 0. Rows wider than ``max_width`` are split into chunks; the
-overflow chunks are added back into their real rows with `index_add_`.
+``cols[i, :]`` with weights ``w[i, :]``, so one SpMM is a gather-reduce
+per bucket (the CUDA kernel of `gsrs_tpu_torch.ops.ell_kernel`, one
+launch per side on the card), and the output rows are assembled by one
+more gather. Padding slots carry weight 0 and column 0. Rows wider than
+``max_width`` are split into chunks; the overflow chunks are added back
+into their real rows with `index_add_`.
+
+`ell_propagate_layer` is a `torch.autograd.Function` whose backward is
+the transpose-side apply through the same kernel, with the same masked
+weights, as the JAX package's scatter-free custom VJP: no scatter over
+the edges and no atomics in the kernel, in either direction (only the few
+overflow chunks of split rows go through `index_add_`, as in JAX). The
+optional ``edge_mask`` (canonical edge order,
+`gsrs_tpu_torch.ops.spmm.edge_keep_mask`) scales each slot's weight by
+``edge_mask[eidx]``.
 
 The host builders are numpy, exactly the JAX package's, and return CPU
-tensors; `EllGraph.to` moves them to the device. Dropout and the
-backward pass (the transpose-side apply as a `torch.autograd.Function`)
-belong to the training slice.
+tensors; `EllGraph.to` moves them to the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from gsrs_tpu_torch.ops.ell_kernel import BucketTable, gather_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +75,12 @@ class EllSide:
             extra_dst=mv(self.extra_dst),
             extra_pos=mv(self.extra_pos),
         )
+
+    @functools.cached_property
+    def table(self) -> BucketTable:
+        """The buckets as one gather-reduce launch table, built at first
+        use on the side's device."""
+        return BucketTable([(b.cols, b.w, b.eidx) for b in self.buckets])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,14 +254,17 @@ def ell_from_interactions(data, min_width: int = 4) -> EllGraph:
 # ----------------------------------------------------------------- apply
 
 
-def _apply_side(side: EllSide, x: torch.Tensor) -> torch.Tensor:
-    """out[r] = Σ_slots w · x[col] for every row r of this side."""
-    d = x.shape[-1]
-    partials = []
-    for b in side.buckets:
-        gathered = x.index_select(0, b.cols.reshape(-1)).reshape(*b.cols.shape, d)
-        partials.append(torch.einsum("nd,ndk->nk", b.w.to(x.dtype), gathered))
-    concat = torch.cat(partials + [x.new_zeros(1, d)], dim=0)
+def _apply_side(
+    side: EllSide, x: torch.Tensor, edge_mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """out[r] = Σ_slots w · x[col] for every row r of this side. The
+    gather-reduce writes each bucket's rows straight into its place in
+    the concatenation of bucket outputs, whose last row stays zero for
+    the zero-degree rows to gather."""
+    table = side.table
+    concat = x.new_empty(table.n_rows + 1, x.shape[-1])
+    concat[table.n_rows].zero_()
+    gather_reduce(table, x.contiguous(), edge_mask, out=concat)
     out = concat.index_select(0, side.assemble)
     if side.extra_dst is not None:
         # overflow chunks of split mega rows (see EllSide)
@@ -252,8 +272,37 @@ def _apply_side(side: EllSide, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _EllLayer(torch.autograd.Function):
+    """Forward: both sides' apply. Backward: W^T ĝ_u is the item-side
+    apply of ĝ_u and W ĝ_i the user-side apply of ĝ_i, with the same
+    masked weights; no gradient flows to the graph or the mask."""
+
+    @staticmethod
+    def forward(ctx, graph, user_emb, item_emb, edge_mask):
+        ctx.graph, ctx.edge_mask = graph, edge_mask
+        ctx.dtypes = (user_emb.dtype, item_emb.dtype)
+        return (_apply_side(graph.by_user, item_emb, edge_mask),
+                _apply_side(graph.by_item, user_emb, edge_mask))
+
+    @staticmethod
+    def backward(ctx, g_u, g_i):
+        graph, mask = ctx.graph, ctx.edge_mask
+        u_dtype, i_dtype = ctx.dtypes
+        d_item = _apply_side(graph.by_item, g_u, mask).to(i_dtype)
+        d_user = _apply_side(graph.by_user, g_i, mask).to(u_dtype)
+        return None, d_user, d_item, None
+
+
 def ell_propagate_layer(
-    graph: EllGraph, user_emb: torch.Tensor, item_emb: torch.Tensor
+    graph: EllGraph,
+    user_emb: torch.Tensor,
+    item_emb: torch.Tensor,
+    edge_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LightGCN layer: new_user = W @ item_emb, new_item = W^T @ user_emb."""
-    return _apply_side(graph.by_user, item_emb), _apply_side(graph.by_item, user_emb)
+    """One LightGCN layer, scatter-free in both passes: new_user =
+    W @ item_emb, new_item = W^T @ user_emb. ``edge_mask``: optional (E,)
+    per-edge weight scale in canonical edge order (cast to fp32 for the
+    kernel; its values are those of the caller's dtype)."""
+    if edge_mask is not None:
+        edge_mask = edge_mask.detach().float().contiguous()
+    return _EllLayer.apply(graph, user_emb, item_emb, edge_mask)

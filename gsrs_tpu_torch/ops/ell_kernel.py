@@ -1,0 +1,168 @@
+"""ELL gather-reduce: the hand-written CUDA kernel
+``csrc/ell_gather_reduce.cu`` and its plain PyTorch version.
+
+Port of the TPU kernel `tools/probe_pallas_gather.py` (a DMA row gather
+with a block reduction) as the gather-reduce of each ELL bucket in
+`gsrs_tpu.ops.ell._apply_side`: ``out[n] = Σ_j w[n, j] · x[cols[n, j]]``,
+with ``w[n, j] · mask[eidx[n, j]]`` in place of the weight when an edge
+mask is given. `BucketTable` holds the buckets of one side, checked once;
+`gather_reduce` writes every bucket's rows into one output buffer, one
+after the other, in a single launch on the card.
+
+Dispatch: CUDA tensors launch the kernel or raise (wrong device, dtype,
+shape or contiguity, a failed build or a refused launch); CPU tensors take
+`gather_reduce_reference` bucket by bucket. There is no fallback from one
+to the other. ``LAUNCHES`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+LAUNCHES = {"ell_gather_reduce": 0}
+MAX_BUCKETS = 64  # kMaxBuckets of the CUDA source: buckets per launch
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class _Bucket(ctypes.Structure):
+    _fields_ = [
+        ("cols", ctypes.c_void_p), ("w", ctypes.c_void_p), ("eidx", ctypes.c_void_p),
+        ("n_rows", ctypes.c_int32), ("width", ctypes.c_int32),
+        ("out_row0", ctypes.c_int32), ("block0", ctypes.c_int32),
+    ]
+
+
+class _Table(ctypes.Structure):
+    _fields_ = [("b", _Bucket * MAX_BUCKETS), ("n_buckets", ctypes.c_int32),
+                ("n_blocks", ctypes.c_int32)]
+
+
+def gather_reduce_reference(
+    cols: torch.Tensor,
+    w: torch.Tensor,
+    x: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    eidx: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version for one bucket → (n_b, d) in x's dtype: the
+    `index_select` + `einsum` of `gsrs_tpu.ops.ell._apply_side`."""
+    if mask is not None:
+        w = w * mask[eidx]
+    d = x.shape[-1]
+    gathered = x.index_select(0, cols.reshape(-1)).reshape(*cols.shape, d)
+    return torch.einsum("nd,ndk->nk", w.to(x.dtype), gathered)
+
+
+class BucketTable:
+    """The buckets of one ELL side, ``(cols, w, eidx)`` each with cols
+    and eidx (n_b, W_b) int32 and w (n_b, W_b) fp32, all on one device.
+    Their outputs stack in this order into rows [0, n_rows) of the
+    output. Shapes, dtypes and index ranges are checked here, once; on
+    the card the launch tables are built here too."""
+
+    def __init__(self, buckets: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
+        self.buckets = tuple(buckets)
+        devices = {t.device for b in self.buckets for t in b}
+        if len(devices) > 1:
+            raise ValueError(f"buckets lie on different devices: {sorted(map(str, devices))}")
+        self.device = devices.pop() if devices else torch.device("cpu")
+        self.max_col = self.max_eidx = -1
+        self.n_rows = 0
+        for cols, w, eidx in self.buckets:
+            if cols.dim() != 2 or w.shape != cols.shape or eidx.shape != cols.shape:
+                raise ValueError("a bucket's cols, w and eidx must share one (n_b, W) shape")
+            if cols.dtype != torch.int32 or eidx.dtype != torch.int32 or w.dtype != torch.float32:
+                raise TypeError("a bucket's cols and eidx must be int32 and its w float32")
+            if cols.numel():
+                self.max_col = max(self.max_col, int(cols.max()))
+                self.max_eidx = max(self.max_eidx, int(eidx.max()))
+            self.n_rows += cols.shape[0]
+        if self.n_rows >= 2**31 or max((c.numel() for c, _, _ in self.buckets), default=0) >= 2**31:
+            raise ValueError("the kernel indexes rows and slots of a bucket with int32")
+        self._tables = self._launch_tables() if self.device.type == "cuda" else ()
+
+    def _launch_tables(self):
+        tables, row0 = [], 0
+        for start in range(0, len(self.buckets), MAX_BUCKETS):
+            table = _Table()
+            chunk = self.buckets[start:start + MAX_BUCKETS]
+            for slot, (cols, w, eidx) in zip(table.b, chunk):
+                for t in (cols, w, eidx):
+                    if not t.is_contiguous():
+                        raise ValueError("bucket tensors must be contiguous for the CUDA kernel")
+                slot.cols, slot.w, slot.eidx = cols.data_ptr(), w.data_ptr(), eidx.data_ptr()
+                slot.n_rows, slot.width, slot.out_row0 = cols.shape[0], cols.shape[1], row0
+                row0 += cols.shape[0]
+            table.n_buckets = len(chunk)
+            tables.append(table)
+        return tuple(tables)
+
+
+def _check_inputs(table: BucketTable, x, mask, out) -> None:
+    for name, t in (("x", x), ("mask", mask), ("out", out)):
+        if t is not None and t.device != table.device:
+            raise ValueError(f"{name} is on {t.device}, the buckets on {table.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (S, d), got shape {tuple(x.shape)}")
+    if x.shape[0] <= table.max_col:
+        raise ValueError(f"x has {x.shape[0]} rows; the buckets reach row {table.max_col}")
+    if mask is not None and (mask.dim() != 1 or mask.shape[0] <= table.max_eidx):
+        raise ValueError(f"mask must be 1-D with more than {table.max_eidx} entries")
+    if out.dim() != 2 or out.shape[0] < table.n_rows or out.shape[1] != x.shape[1]:
+        raise ValueError(f"out must be ({table.n_rows}+, {x.shape[1]}), got {tuple(out.shape)}")
+    if out.dtype != x.dtype:
+        raise TypeError(f"out is {out.dtype}, x is {x.dtype}")
+
+
+def _launch(table: BucketTable, x, mask, out) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16 for the CUDA kernel, got {x.dtype}")
+    if mask is not None and mask.dtype != torch.float32:
+        raise TypeError(f"mask must be float32 for the CUDA kernel, got {mask.dtype}")
+    for name, t in (("x", x), ("mask", mask), ("out", out)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
+    from gsrs_tpu_torch.kernels import load_library
+
+    fn = load_library("ell_gather_reduce").gsrs_ell_gather_reduce
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    mask_ptr = None if mask is None else mask.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for t in table._tables:
+            rc = fn(ctypes.addressof(t), x.data_ptr(), mask_ptr, out.data_ptr(), x.shape[1],
+                    int(x.dtype == torch.bfloat16), stream)
+            if rc != 0:
+                raise RuntimeError(f"ell_gather_reduce kernel launch failed: CUDA error {rc}")
+            LAUNCHES["ell_gather_reduce"] += 1
+
+
+def gather_reduce(
+    table: BucketTable,
+    x: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Every bucket's ``Σ_j w · x[cols]`` into consecutive rows of
+    ``out`` ((≥ table.n_rows, d) in x's dtype; allocated when None) →
+    out. x is (S, d) fp32 or bf16; ``mask`` (E,) fp32 scales each slot's
+    weight by ``mask[eidx]``. Rows of ``out`` past table.n_rows are left
+    as they are."""
+    if out is None:
+        out = torch.empty(table.n_rows, x.shape[-1], dtype=x.dtype, device=x.device)
+    _check_inputs(table, x, mask, out)
+    if table.device.type == "cpu":
+        row0 = 0
+        for cols, w, eidx in table.buckets:
+            n_b = cols.shape[0]
+            out[row0:row0 + n_b] = gather_reduce_reference(cols, w, x, mask, eidx)
+            row0 += n_b
+        return out
+    if table.device.type != "cuda":
+        raise ValueError(f"gather_reduce runs on CUDA or the CPU, not {table.device}")
+    _launch(table, x, mask, out)
+    return out

@@ -1,0 +1,140 @@
+"""Full-catalog top-k evaluation (port of `gsrs_tpu.train.evaluator`).
+
+One propagation per `run`, then the test users in padded batches of
+``test_batch``: gather the batch's user rows, score the whole catalog
+with the train positives masked by the CUDA kernel of
+`gsrs_tpu_torch.ops.scoring` (K1, or K2 in the bit-plane branch), take
+the top ``max(topks)`` with `torch.topk`, and sum recall, precision and
+NDCG on the device. The padded tail carries user weight 0. The host reads
+the sums once, at the end of `run`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from gsrs_tpu_torch.config import EvalConfig
+from gsrs_tpu_torch.data.dataset import InteractionData
+from gsrs_tpu_torch.device import DeviceLike, resolve_device
+from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
+from gsrs_tpu_torch.ops.metrics import batch_metrics, topk_labels
+from gsrs_tpu_torch.ops.scoring import (
+    bitplane_permutation,
+    masked_scores,
+    resolve_bitplane_scoring,
+)
+
+BITPLANE_BLOCK_M = 4096
+
+
+class Evaluator:
+    """Evaluates ``model`` (a LightGCN on ``device``, default ``cuda:0``)
+    on ``data.test_dict``. ``train_bitset``: the (n_users, W) int32 train
+    bitset already on the device (the sampler's), so that no second copy
+    is held; built from ``data`` when None."""
+
+    def __init__(
+        self,
+        data: InteractionData,
+        model,
+        cfg: EvalConfig,
+        train_bitset: Optional[torch.Tensor] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        if model.user_emb.device != self.device:
+            raise ValueError(f"the model is on {model.user_emb.device}, the Evaluator on "
+                             f"{self.device}")
+        if cfg.topk_method != "exact":
+            raise NotImplementedError(
+                f"topk_method={cfg.topk_method!r} is not ported yet (ROADMAP.md A2b); "
+                "use 'exact'")
+        self.cfg = cfg
+        self.model = model
+        self.max_k = max(cfg.topks)
+
+        test_users = data.test_users()
+        self.n_test_users = int(test_users.size)
+        B = cfg.test_batch
+        n_batches = max(1, -(-self.n_test_users // B))
+        users = np.zeros(n_batches * B, dtype=np.int64)
+        users[: self.n_test_users] = test_users
+        weights = np.zeros(n_batches * B, dtype=np.float32)
+        weights[: self.n_test_users] = 1.0
+        gt = np.zeros(data.n_users, dtype=np.float32)
+        for u, items in data.test_dict.items():
+            gt[u] = len(items)
+        dev = self.device
+        self._users = torch.from_numpy(users.reshape(n_batches, B)).to(dev)
+        self._weights = torch.from_numpy(weights.reshape(n_batches, B)).to(dev)
+        self._gt = torch.from_numpy(gt[users].reshape(n_batches, B)).to(dev)
+
+        if train_bitset is None:
+            train_bitset = build_bitset(data.train_users, data.train_items, data.n_users,
+                                        data.m_items, real_m_items=data.real_m_items)
+        self.train_bitset = bitset_to_tensor(train_bitset, dev)
+        if data.test_dict:
+            te_u = np.concatenate([np.full(len(v), k, np.int64) for k, v in data.test_dict.items()])
+            te_i = np.concatenate([np.asarray(v) for v in data.test_dict.values()])
+        else:
+            te_u = te_i = np.zeros(0, np.int64)
+        self.test_bitset = bitset_to_tensor(build_bitset(te_u, te_i, data.n_users, data.m_items),
+                                            dev)
+
+        self._m = data.m_items
+        self._bitplane = (resolve_bitplane_scoring(cfg.use_pallas_scoring, data.m_items)
+                          and cfg.pallas_variant == "bitplane")
+        if self._bitplane:
+            m, block_m = self._m, BITPLANE_BLOCK_M
+            self._m_pad = -(-m // block_m) * block_m
+            self._bp_perm = torch.from_numpy(bitplane_permutation(self._m_pad, block_m)).to(dev)
+            # the batch's bitset rows widen to m_pad/32 words: pad words all
+            # ones, and the ragged bits [m, 32·W) of the last natural word
+            # set, so every phantom column is masked
+            W = self.train_bitset.shape[1]
+            self._pad_words = torch.full((B, self._m_pad // 32 - W), -1, dtype=torch.int32,
+                                         device=dev)
+            self._ragged = None
+            if m % 32:
+                high = np.array([0xFFFFFFFF << (m % 32) & 0xFFFFFFFF], np.uint32)
+                self._ragged = int(high.view(np.int32)[0])
+
+    def _top_items(self, u_emb: torch.Tensor, items: torch.Tensor, rows: torch.Tensor):
+        """→ (top item ids (B, max_k), valid (B, max_k) float or None)."""
+        if not self._bitplane:
+            return torch.topk(masked_scores(u_emb, items, rows), self.max_k, dim=1).indices, None
+        if self._ragged is not None:
+            rows[:, -1] |= self._ragged
+        rows = torch.cat([rows, self._pad_words], dim=1)
+        scores = masked_scores(u_emb, items, rows, bitplane=True, block_m=BITPLANE_BLOCK_M)
+        top = self._bp_perm[torch.topk(scores, self.max_k, dim=1).indices]
+        # phantom columns surface only for users whose whole row ties at
+        # the mask value; their labels are zeroed and the ids clamped
+        valid = (top < self._m).float()
+        return top.clamp_(max=self._m - 1), valid
+
+    @torch.no_grad()
+    def run(self) -> Dict[str, float]:
+        """One propagation of the model's current parameters + every
+        scoring batch → mean metrics over the real test users."""
+        all_users, items, _ = self.model.final_embeddings()
+        if self._bitplane:
+            items = F.pad(items, (0, 0, 0, self._m_pad - self._m))[self._bp_perm].contiguous()
+        totals: Dict[str, torch.Tensor] = {}
+        for users, weights, gt in zip(self._users, self._weights, self._gt):
+            u_emb = all_users.index_select(0, users)
+            rows = self.train_bitset.index_select(0, users)
+            top, valid = self._top_items(u_emb, items, rows)
+            labels = topk_labels(top, self.test_bitset, users)
+            if valid is not None:
+                labels = labels * valid
+            for k, v in batch_metrics(labels, gt, weights, self.cfg.topks).items():
+                totals[k] = totals[k] + v if k in totals else v
+        names = list(totals)
+        values = torch.stack([totals[k] for k in names]).cpu().tolist()
+        denom = max(self.n_test_users, 1)
+        return {k: v / denom for k, v in zip(names, values)}

@@ -39,8 +39,10 @@ def test_port_imports_nothing_of_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["has_main"]
-    for name in ("serve", "convert", "kernels", "ops.scoring", "ops.ell", "models.lightgcn",
-                 "data.adjacency"):
+    for name in ("serve", "convert", "kernels", "drive", "ops.scoring", "ops.ell",
+                 "ops.ell_kernel", "ops.spmm", "ops.sampling", "ops.metrics", "models.lightgcn",
+                 "data.adjacency", "train.fused_adam", "train.optim", "train.evaluator",
+                 "train.trainer"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"
