@@ -7,13 +7,19 @@
 2. Builds every CUDA kernel from ``gsrs_tpu_torch/csrc``, one ``nvcc``
    per source, all started together.
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card. Masked scoring (K1/K2) in both layouts at the serving shape
-   (256 × 64 × 40,981), at B = 13 and at m = 100, with random bitsets. The
-   ELL gather-reduce (K4) on every bucket of both sides of the
-   Gowalla-shaped stand-in, fp32 and bf16, with and without an edge mask,
-   and at the TPU probe's shape against the probe's own oracle. Fused
-   Adam (K3) over 3 steps across an lr milestone, fp32 and bf16, on an
-   odd element count (37 × 11) and on the Gowalla-shaped tables.
+   card. Masked scoring (K1/K2) with random bitsets at B = 1, 13, 256 and
+   2048 (the eval batch), d = 40 and 64, the odd m = 40,981 in natural
+   order and in the bit-plane layout at block_m = 64, 4096 and 8192, and
+   at m = 100. The ELL gather-reduce (K4) on every bucket of both sides of
+   the Gowalla-shaped stand-in, fp32 and bf16, with and without an edge
+   mask; on a side whose hub row of 70,000 slots crosses max_width (the
+   layout's extra_dst path) and on rows of exactly S, S + 1 and 2S real
+   slots and one that is padding after slot 1 (S = the split length: rows
+   longer go through the kernel's second pass); two calls on the same
+   inputs must be bitwise equal; and at the TPU probe's shape against the
+   probe's own oracle. Fused Adam (K3) over 3 steps across an lr
+   milestone, fp32 and bf16, on an odd element count (37 × 11) and on the
+   Gowalla-shaped tables.
 4. Serving phase, LightGCN at Gowalla's shape (a seeded power-law
    stand-in: 29,858 users × 40,981 items, average degree 27), 3 layers at
    dim 64, fp32, seeded weights: build the graph, propagate, build the
@@ -63,7 +69,9 @@ BATCH, K, N_REQUESTS = 256, 20, 4
 ATOL = 1e-4  # kernel vs plain: fp32 sums in another order, |score| ≲ 30
 SWAP_TOL = 1e-5  # top-k boundary ties the two orders may rank either way
 ELL_ATOL = 1e-5  # K4 fp32: sums of O(1) in another order
-ELL_BF16_RTOL = 1e-2  # K4 bf16: one rounding of the fp32 sum (2^-9 relative) ...
+# K4 bf16 against the fp32 sum of the weights rounded to bf16 (as the kernel and JAX round
+# them): one rounding of that sum to bf16 (at most 2^-8 relative) ...
+ELL_BF16_RTOL = 2.0**-8
 ELL_BF16_ATOL = 1e-5  # ... plus the fp32 order difference near zero
 ADAM_ATOL = 2e-6  # K3 fp32 over 3 steps at lr 1e-2
 TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: parameters and losses
@@ -171,25 +179,27 @@ def kernel_phase(dev: torch.device) -> dict:
     from gsrs_tpu_torch.ops.scoring import masked_scores, masked_scores_reference
 
     g = torch.Generator(device=dev).manual_seed(SEED)
+    m_main = GOWALLA_SHAPE["m_items"]  # odd: every score row starts at a 4-byte offset
+    cases = [(B, d, m_main, bitplane, block_m) for B in (1, 13, BATCH, 2048) for d in (40, 64)
+             for bitplane, block_m in ((False, 4096), (True, 64), (True, 4096), (True, 8192))]
+    cases += [(BATCH, 64, 100, False, 4096), (BATCH, 64, 100, True, 4096)]
     errs = {}
-    for B, d, m in ((BATCH, 64, GOWALLA_SHAPE["m_items"]), (13, 64, 40981), (BATCH, 64, 100)):
-        for bitplane in (False, True):
-            block_m = 4096
-            rows = -(-m // block_m) * block_m if bitplane else m
-            W = rows // 32 if bitplane else -(-m // 32)
-            u = torch.randn(B, d, device=dev, generator=g)
-            it = torch.randn(rows, d, device=dev, generator=g)
-            bits = torch.randint(-2**31, 2**31, (B, W), device=dev, generator=g,
-                                 dtype=torch.int64).to(torch.int32)
-            got = masked_scores(u, it, bits, bitplane=bitplane, block_m=block_m)
-            ref = masked_scores_reference(u, it, bits, bitplane=bitplane, block_m=block_m)
-            torch.cuda.synchronize()
-            name = "masked_scores_bitplane" if bitplane else "masked_scores"
-            err = compare(got, ref, f"{name} B={B} d={d} m={m}")
-            log(f"[kernel] {name:24s} B={B:3d} d={d} m={m:5d}: max abs err {err:.3e}")
-            if (B, m) == (BATCH, GOWALLA_SHAPE["m_items"]):
-                errs[name] = err
-    torch.cuda.synchronize()
+    for B, d, m, bitplane, block_m in cases:
+        rows = -(-m // block_m) * block_m if bitplane else m
+        W = rows // 32 if bitplane else -(-m // 32)
+        u = torch.randn(B, d, device=dev, generator=g)
+        it = torch.randn(rows, d, device=dev, generator=g)
+        bits = torch.randint(-2**31, 2**31, (B, W), device=dev, generator=g,
+                             dtype=torch.int64).to(torch.int32)
+        got = masked_scores(u, it, bits, bitplane=bitplane, block_m=block_m)
+        ref = masked_scores_reference(u, it, bits, bitplane=bitplane, block_m=block_m)
+        torch.cuda.synchronize()
+        name = "masked_scores_bitplane" if bitplane else "masked_scores"
+        err = compare(got, ref, f"{name} B={B} d={d} m={m} block_m={block_m}")
+        log(f"[kernel] {name:24s} B={B:4d} d={d} m={m:5d}"
+            f"{f' block_m={block_m:4d}' if bitplane else ''}: max abs err {err:.3e}")
+        if (B, d, m, block_m) == (BATCH, 64, m_main, 4096):
+            errs[name] = err
     return errs
 
 
@@ -295,7 +305,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
 
     # ---- timing
     with torch.no_grad():
-        prop_ms = cuda_ms(model.final_embeddings, reps=5, warmup=1)
+        prop_ms = cuda_ms(model.final_embeddings, reps=20, warmup=5)
     lat = []
     for i in range(30):
         t0 = time.perf_counter()
@@ -326,6 +336,14 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
         ))
         log(f"[time] {name}: {ms * 1e3:.1f} us/launch, bound {b_ms * 1e3:.1f} us ({b_by}), "
             f"plain {plain_ms * 1e3:.1f} us, torch.matmul {library_ms * 1e3:.1f} us")
+    u_eval = ue[:2048].contiguous()
+    bits_eval = seen[:2048].contiguous()
+    eval_ms = cuda_ms(lambda: scoring.masked_scores(u_eval, ie, bits_eval), reps=50, warmup=5)
+    eval_lib_ms = cuda_ms(lambda: torch.matmul(u_eval, ie.T), reps=50, warmup=5)
+    b_ms, b_by = bound(2048, d, ie.shape[0], bits_eval.shape[1])
+    log(f"[time] masked_scores at the eval batch (2048 users): {eval_ms * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.1f} us ({b_by}), torch.matmul {eval_lib_ms * 1e3:.1f} us")
+    kernels[0]["eval_batch"] = dict(B=2048, ms=eval_ms, bound_ms=b_ms, library_ms=eval_lib_ms)
     log(f"[time] propagation (final_embeddings, 3 layers) {prop_ms:.3f} ms; "
         f"recommend p50 {lat_p50_ms:.3f} ms for {BATCH} users; peak device memory "
         f"{peak_mib:.1f} MiB")
@@ -374,18 +392,21 @@ def training_data():
                               holdout_frac=0.2)
 
 
-def ell_side_check(side, x, mask, what: str) -> float:
-    """K4 on one side against the plain version, bucket by bucket → max
-    abs error (fp32) or max error over the allowed error (bf16)."""
+def ell_side_check(table, x, mask, what: str) -> float:
+    """K4 on one side's BucketTable against the plain version, bucket by
+    bucket, the weights (w · mask) rounded to x's dtype as the kernel and
+    the JAX einsum round them, summed in fp32 → max abs error (fp32) or
+    max error over the allowed error (bf16)."""
     from gsrs_tpu_torch.ops.ell_kernel import gather_reduce, gather_reduce_reference
 
-    got = gather_reduce(side.table, x, mask)
+    got = gather_reduce(table, x, mask)
     torch.cuda.synchronize()
     check(got.dtype == x.dtype, f"{what}: output dtype {got.dtype}")
     row0, worst = 0, 0.0
-    for cols, w, eidx in side.table.buckets:
+    for cols, w, eidx in table.buckets:
         n_b = cols.shape[0]
-        want = gather_reduce_reference(cols, w, x.float(), mask, eidx)
+        wm = w if mask is None else w * mask[eidx]
+        want = gather_reduce_reference(cols, wm.to(x.dtype).float(), x.float())
         err = (got[row0:row0 + n_b].float() - want).abs()
         if x.dtype == torch.float32:
             worst = max(worst, float(err.max()))
@@ -398,6 +419,84 @@ def ell_side_check(side, x, mask, what: str) -> float:
     else:
         check(worst <= 1.0, f"{what}: error {worst}x the bf16 limit")
     return worst
+
+
+def ell_variants(table, x, mask, what: str) -> float:
+    """ell_side_check in fp32 and bf16, with and without the mask →
+    max fp32 abs error."""
+    err32 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (None, mask):
+            label = f"{what} {str(dtype)[6:]} {'masked' if m is not None else 'unmasked'}"
+            err = ell_side_check(table, x.to(dtype), m, label)
+            log(f"[kernel] {label}: max {'abs err' if dtype == torch.float32 else 'err/limit'}"
+                f" {err:.3e}")
+            if dtype == torch.float32:
+                err32 = max(err32, err)
+    return err32
+
+
+def split_row_checks(dev) -> None:
+    """K4 where the work list splits rows: a hub row of 70,000 slots that
+    also crosses max_width (65,536: the layout's extra_dst path), and rows
+    of exactly S, S + 1 and 2S real slots beside one that is padding after
+    slot 1 (S = SPLIT_SLOTS)."""
+    from gsrs_tpu_torch.data.adjacency import normalized_edge_weights
+    from gsrs_tpu_torch.ops.ell import _apply_side, build_ell_graph
+    from gsrs_tpu_torch.ops.ell_kernel import SPLIT_SLOTS, BucketTable
+
+    n, m = 70_000, 40
+    rng = np.random.default_rng(SEED)
+    pairs = np.unique(np.stack([np.concatenate([np.arange(n), rng.integers(0, n, 20_000)]),
+                                np.concatenate([np.zeros(n, np.int64),
+                                                rng.integers(1, m, 20_000)])], 1), axis=0)
+    users, items = pairs[:, 0], pairs[:, 1]
+    w = normalized_edge_weights(users, items, np.bincount(users, minlength=n),
+                                np.bincount(items, minlength=m))
+    graph = build_ell_graph(users.astype(np.int32), items.astype(np.int32), w, n, m)
+    check(graph.by_item.extra_dst is not None, "the hub row did not cross max_width")
+    side = graph.to(dev).by_item
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(n, 64, device=dev, generator=g) / 4
+    mask = (torch.rand(users.size, device=dev, generator=g) < 0.6).float() / 0.6
+    n_split = sum(work.splits.shape[0] for _, work in side.table._tables)
+    check(n_split >= 2, f"the hub side split {n_split} rows")
+    ell_variants(side.table, x, mask, f"ell_gather_reduce hub side ({n_split} split rows)")
+    got = _apply_side(side, x, mask).cpu()
+    want = _apply_side(graph.by_item, x.cpu(), mask.cpu())
+    err = float((got - want).abs().max())
+    check(err <= ELL_ATOL, f"hub side through extra_dst: card vs CPU {err}")
+    log(f"[kernel] ell hub side through extra_dst (fp32, masked): card vs CPU max abs err "
+        f"{err:.3e}")
+
+    S, width = SPLIT_SLOTS, 2 * SPLIT_SLOTS + 64
+    lengths = (S, S + 1, 2 * S, 1)
+    cols = torch.randint(0, 3000, (len(lengths), width), device=dev, generator=g,
+                         dtype=torch.int32)
+    wt = (torch.rand(len(lengths), width, device=dev, generator=g) + 0.1) / width**0.5
+    eidx = torch.randint(0, 5000, (len(lengths), width), device=dev, generator=g,
+                         dtype=torch.int32)
+    for r, length in enumerate(lengths):
+        cols[r, length:], wt[r, length:], eidx[r, length:] = 0, 0.0, 0
+    table = BucketTable([(cols, wt, eidx)])
+    n_split = sum(work.splits.shape[0] for _, work in table._tables)
+    check(n_split == 2, f"rows of S + 1 and 2S slots: {n_split} split rows")
+    mask = (torch.rand(5000, device=dev, generator=g) < 0.6).float() / 0.6
+    ell_variants(table, torch.randn(3000, 64, device=dev, generator=g), mask,
+                 f"ell_gather_reduce rows of {lengths} real slots (S = {S})")
+
+
+def determinism_check(side, x, mask) -> None:
+    """Two calls on the same inputs are bitwise equal (no atomics; split
+    rows' partials are added in chunk order)."""
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+
+    for dtype in (torch.float32, torch.bfloat16):
+        first = gather_reduce(side.table, x.to(dtype), mask)
+        second = gather_reduce(side.table, x.to(dtype), mask)
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), f"ell_gather_reduce {dtype}: two calls differ")
+    log("[kernel] ell_gather_reduce by_item: two calls bitwise equal (fp32 and bf16, masked)")
 
 
 def probe_check(dev) -> None:
@@ -441,15 +540,12 @@ def kernel_phase_train(dev, data) -> dict:
     ell_err = 0.0
     for side_name, side, x in (("by_user", ell.by_user, tables["item"]),
                                ("by_item", ell.by_item, tables["user"])):
-        for dtype in (torch.float32, torch.bfloat16):
-            for m in (None, mask):
-                what = (f"ell_gather_reduce {side_name} {len(side.buckets)} buckets "
-                        f"{str(dtype)[6:]} {'masked' if m is not None else 'unmasked'}")
-                err = ell_side_check(side, x.to(dtype), m, what)
-                log(f"[kernel] {what}: max {'abs err' if dtype == torch.float32 else 'err/limit'}"
-                    f" {err:.3e}")
-                if dtype == torch.float32:
-                    ell_err = max(ell_err, err)
+        n_split = sum(work.splits.shape[0] for _, work in side.table._tables)
+        ell_err = max(ell_err, ell_variants(
+            side.table, x, mask, f"ell_gather_reduce {side_name} {len(side.buckets)} buckets, "
+            f"{n_split} split rows"))
+    determinism_check(ell.by_item, tables["user"], mask)
+    split_row_checks(dev)
     probe_check(dev)
 
     sched = lr_schedule(TrainConfig(lr=1e-2, use_scheduler=True, sched_milestones=(2,),
@@ -665,16 +761,22 @@ def side_csr(side, n_src: int):
 
 
 def time_ell(model, launches: int, per_step: float, err: float) -> dict:
-    """K4 per launch, averaged over the two sides of a forward layer at
-    the trained model's tables."""
-    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce, gather_reduce_reference
+    """K4 per call, averaged over the two sides of a forward layer at the
+    trained model's tables, beside each side's bound over its real edges
+    (the padding slots' bound of earlier runs logged beside it), and the
+    by_item side at other split lengths S."""
+    from gsrs_tpu_torch.ops.ell_kernel import (
+        SPLIT_SLOTS, BucketTable, gather_reduce, gather_reduce_reference,
+    )
 
     d = model.cfg.embedding_dim
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bound_by = set()
+    bound_by, sides = set(), {}
+    todo = [(name, side, x, side_csr(side, x.shape[0])) for name, side, x in (
+        ("by_user", model.ell.by_user, model.item_emb.detach()),
+        ("by_item", model.ell.by_item, model.user_emb.detach()))]  # host work before any timing
     with torch.no_grad():
-        for name, side, x in (("by_user", model.ell.by_user, model.item_emb.detach()),
-                              ("by_item", model.ell.by_item, model.user_emb.detach())):
+        for name, side, x, csr in todo:
             table = side.table
             out = torch.empty(table.n_rows + 1, d, device=x.device)
 
@@ -684,25 +786,42 @@ def time_ell(model, launches: int, per_step: float, err: float) -> dict:
                     out[row0:row0 + cols.shape[0]] = gather_reduce_reference(cols, w, x)
                     row0 += cols.shape[0]
 
-            csr = side_csr(side, x.shape[0])
             slots = sum(c.numel() for c, _, _ in table.buckets)
             nnz = csr.values().numel()
-            b_ms, b_by = roofline(8 * slots + 4 * x.numel() + 4 * table.n_rows * d, 2 * nnz * d)
-            t = dict(ms=cuda_ms(lambda: gather_reduce(table, x, out=out), reps=50),
+            # (col, weight) of each real edge, x read once, the output written once
+            io = x.element_size() * (x.numel() + table.n_rows * d)
+            b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * d)
+            b_slots_ms, _ = roofline(8 * slots + io, 2 * nnz * d)
+            n_split = sum(work.splits.shape[0] for _, work in table._tables)
+            t = dict(ms=cuda_ms(lambda: gather_reduce(table, x, out=out), reps=200, warmup=100),
                      plain_ms=cuda_ms(plain, reps=10),
                      library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), reps=50),
                      bound_ms=b_ms)
             bound_by.add(b_by)
+            sides[name] = dict(t, slots=slots, edges=nnz, split_rows=n_split,
+                               bound_ms_all_slots=b_slots_ms)
             log(f"[time] ell_gather_reduce {name}: {len(table.buckets)} buckets, {slots} slots "
-                f"({nnz} edges), {t['ms'] * 1e3:.1f} us/launch, bound {b_ms * 1e3:.1f} us "
-                f"({b_by}), plain {t['plain_ms'] * 1e3:.1f} us, torch.sparse.mm (CSR) "
+                f"({nnz} edges, {n_split} rows split at S = {SPLIT_SLOTS}), "
+                f"{t['ms'] * 1e3:.1f} us/call, bound {b_ms * 1e3:.2f} us ({b_by}; "
+                f"{b_slots_ms * 1e3:.2f} us counting every slot), plain "
+                f"{t['plain_ms'] * 1e3:.1f} us, torch.sparse.mm (CSR) "
                 f"{t['library_ms'] * 1e3:.1f} us")
             for k in tot:
                 tot[k] += t[k] / 2
+        side, x = model.ell.by_item, model.user_emb.detach()
+        buckets = side.table.buckets
+        out = torch.empty(side.table.n_rows + 1, d, device=x.device)
+        sweep = {}
+        for split in (64, 128, 256, 512, 1024):
+            table = BucketTable(buckets, split=split)
+            sweep[split] = cuda_ms(lambda: gather_reduce(table, x, out=out), reps=200, warmup=100)
+        log("[time] ell_gather_reduce by_item at split length S: " + ", ".join(
+            f"S={k} {v * 1e3:.1f} us" for k, v in sweep.items()))
     return dict(name="ell_gather_reduce", route="cuda", source=SOURCES["ell_gather_reduce"],
                 replaces=REPLACES["ell_gather_reduce"], launches=launches, max_abs_err=err,
                 bound_by="/".join(sorted(bound_by)), launches_per_step=per_step,
-                shape=[int(model.n_users), int(model.m_items), d], **tot)
+                shape=[int(model.n_users), int(model.m_items), d], sides=sides,
+                by_item_ms_at_split={str(k): v for k, v in sweep.items()}, **tot)
 
 
 def time_adam(model, launches: int, per_step: float, err: float) -> dict:

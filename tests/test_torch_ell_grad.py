@@ -16,6 +16,9 @@ from gsrs_tpu_torch.ops import ell_kernel
 from gsrs_tpu_torch.ops.ell_kernel import BucketTable, gather_reduce, gather_reduce_reference
 
 ATOL = 1e-6  # fp32, summation order only; values are O(1)
+# kernel vs plain on the card: fp32 sums in another order (1e-5), and in bf16 one rounding of
+# the fp32 sum to bf16 (2^-8 relative) on top
+CARD_ATOL, CARD_BF16_RTOL = 1e-5, 2.0**-8
 
 
 @pytest.fixture
@@ -179,13 +182,22 @@ def test_kernel_matches_reference_on_the_card(cuda, d, dtype, masked):
     torch.cuda.synchronize()
     assert ell_kernel.LAUNCHES["ell_gather_reduce"] == before + 1
     assert got.dtype == dtype
-    # the fp32 sum of the same inputs; bf16 output is that sum rounded once
-    want = torch.cat([gather_reduce_reference(c, w, x.float(), mask, e)
-                      for c, w, e in table.buckets])
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    else:
-        torch.testing.assert_close(got.float(), want, atol=1e-5, rtol=1e-2)
+    _assert_matches_fp32_sum(got, table, x, mask)
+
+
+def _fp32_sum(table, x, mask):
+    """The fp32 sum of every bucket with the masked weights rounded to
+    x's dtype first, as the JAX einsum and the kernel round them."""
+    return torch.cat([gather_reduce_reference(
+        c, (w if mask is None else w * mask[e]).to(x.dtype).float(), x.float())
+        for c, w, e in table.buckets])
+
+
+def _assert_matches_fp32_sum(got, table, x, mask):
+    """fp32: that sum within CARD_ATOL; bf16: that sum rounded once."""
+    want = _fp32_sum(table, x, mask)
+    rtol = 0 if x.dtype == torch.float32 else CARD_BF16_RTOL
+    torch.testing.assert_close(got.float(), want, atol=CARD_ATOL, rtol=rtol)
 
 
 @pytest.mark.gpu
@@ -232,3 +244,81 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         gather_reduce(table, torch.randn(16, 10, device=cuda).T)
     with pytest.raises(ValueError, match="is on cpu"):
         gather_reduce(table, x.cpu())
+
+
+def _split_rows_table(dev, S, seed):
+    """Rows of exactly S, S + 1 and 2S real slots, one that is padding
+    after slot 1, one of padding only and one of 70,000 slots with
+    interior zeros, in buckets of width 2S + 64 and 70,000."""
+    g = torch.Generator().manual_seed(seed)
+    buckets = []
+    for width, lengths in ((2 * S + 64, (S, S + 1, 2 * S, 1, 0)), (70_000, (70_000,))):
+        n = len(lengths)
+        cols = torch.randint(0, 3000, (n, width), generator=g, dtype=torch.int32)
+        w = (torch.rand(n, width, generator=g) + 0.1) / width**0.5
+        eidx = torch.randint(0, 5000, (n, width), generator=g, dtype=torch.int32)
+        for r, length in enumerate(lengths):
+            cols[r, length:], w[r, length:], eidx[r, length:] = 0, 0.0, 0
+        w[:, 3:9] = 0.0
+        buckets.append(tuple(t.to(dev) for t in (cols, w, eidx)))
+    return BucketTable(buckets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_split_rows_on_the_card(cuda, dtype, masked):
+    """Rows split into chunks (second pass) and whole rows around S."""
+    table = _split_rows_table(cuda, ell_kernel.SPLIT_SLOTS, 7)
+    assert sum(work.splits.shape[0] for _, work in table._tables) == 3  # S + 1, 2S, 70,000
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3000, 64, device=cuda, generator=g).to(dtype)
+    mask = (torch.rand(5000, device=cuda, generator=g) < 0.6).float() / 0.6 if masked else None
+    got = gather_reduce(table, x, mask)
+    torch.cuda.synchronize()
+    _assert_matches_fp32_sum(got, table, x, mask)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))  # the row of padding only
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic_on_the_card(cuda, dtype):
+    """Two calls on the same inputs are bitwise equal: no atomics, split
+    rows' partials are added in chunk order."""
+    data = tsyn.powerlaw(6000, 9000, avg_degree=40, seed=4)
+    side = tell.ell_from_interactions(data).to(cuda).by_item
+    assert sum(work.splits.shape[0] for _, work in side.table._tables) > 0
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(6000, 64, device=cuda, generator=g).to(dtype)
+    mask = (torch.rand(data.train_size, device=cuda, generator=g) < 0.5).float() * 2
+    first = gather_reduce(side.table, x, mask)
+    second = gather_reduce(side.table, x, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_matches_fp32_sum(first, side.table, x, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_side_with_a_row_past_max_width_on_the_card(cuda, dtype):
+    """A hub item rated by 70,000 users crosses max_width (65,536): the
+    layout cuts it into two rows added back through extra_dst, and the
+    kernel splits each of those at S."""
+    n, m = 70_000, 40
+    rng = np.random.default_rng(0)
+    users = np.concatenate([np.arange(n), rng.integers(0, n, 20_000)])
+    items = np.concatenate([np.zeros(n, np.int64), rng.integers(1, m, 20_000)])
+    pairs = np.unique(np.stack([users, items], 1), axis=0)
+    users, items = pairs[:, 0], pairs[:, 1]
+    w = tadj.normalized_edge_weights(users, items, np.bincount(users, minlength=n),
+                                     np.bincount(items, minlength=m))
+    graph = tell.build_ell_graph(users.astype(np.int32), items.astype(np.int32), w, n, m)
+    assert graph.by_item.extra_dst is not None
+    side = graph.to(cuda).by_item
+    x = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32) / 4)
+    xd = x.to(cuda).to(dtype)
+    _assert_matches_fp32_sum(gather_reduce(side.table, xd), side.table, xd, None)
+    if dtype == torch.float32:  # the whole side, overflow add included, against the CPU
+        got = tell._apply_side(side, xd)
+        torch.testing.assert_close(got.cpu(), tell._apply_side(graph.by_item, x),
+                                   atol=CARD_ATOL, rtol=0)

@@ -172,6 +172,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,d,m", [
     (256, 64, 40981), (13, 64, 40981), (256, 64, 100), (1, 64, 31), (70, 40, 4096),
+    (2048, 64, 40981), (1, 40, 40981), (129, 33, 1001),
 ])
 @pytest.mark.parametrize("bitplane", [False, True])
 def test_kernel_matches_reference_on_the_card(cuda, B, d, m, bitplane):
@@ -201,3 +202,35 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         masked_scores(u, it, bits.long())
     with pytest.raises(ValueError, match="contiguous"):
         masked_scores(u, torch.randn(8, 40, device=cuda).T, bits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_m", [64, 8192])
+@pytest.mark.parametrize("B", [13, 2048])
+def test_kernel_bitplane_block_sizes_on_the_card(cuda, B, block_m):
+    """Bit-plane tiles narrower than the kernel's 128 columns (the tile
+    index changes inside a block) and wider ones."""
+    m_pad = -(-40981 // block_m) * block_m
+    g = torch.Generator(device=cuda).manual_seed(block_m + B)
+    u = torch.randn(B, 64, device=cuda, generator=g)
+    it = torch.randn(m_pad, 64, device=cuda, generator=g)
+    bits = torch.randint(-2**31, 2**31, (B, m_pad // 32), device=cuda, generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    got = masked_scores(u, it, bits, bitplane=True, block_m=block_m)
+    torch.cuda.synchronize()
+    _check(got.cpu(), masked_scores_reference(u, it, bits, True, block_m).cpu())
+
+
+@pytest.mark.gpu
+def test_kernel_unaligned_rows_on_the_card(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies; the scores are the same function."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, d, m = 37, 64, 3001
+    u = torch.randn(B * d + 1, device=cuda, generator=g)[1:].view(B, d)
+    it = torch.randn(m * d + 1, device=cuda, generator=g)[1:].view(m, d)
+    bits = torch.randint(-2**31, 2**31, (B, -(-m // 32)), device=cuda, generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    got = masked_scores(u, it, bits)
+    torch.cuda.synchronize()
+    _check(got.cpu(), masked_scores_reference(u, it, bits).cpu())
