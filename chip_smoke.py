@@ -37,11 +37,30 @@
 7. Quality drive (`gsrs_tpu_torch.drive`): 150 BPR steps on a clustered
    200 × 300 set; loss < 0.1, valid triplets, no train positive in the
    top-20, recall@20 > 0.3.
-8. Times each kernel (CUDA events, after a warm-up) beside its bound, its
-   plain version and one PyTorch call, and the end-to-end numbers: request
-   latency, propagation forward and forward + backward, ms per step,
-   seconds per epoch and per eval, peak device memory, and the device's
-   busy share during requests and train steps (torch.profiler).
+8. Tiled phase, the configuration of ``bench.py``: the tiled layout
+   (G = 64 groups × C = 2048 hub columns) on the training data: its
+   build seconds (spectral order, layout) and dense coverage; one tiled
+   layer against the ELL layer, forward and VJP, in fp32 (within the ELL
+   tolerance), in bf16 (within a limit counted from its bf16 roundings)
+   and with a hash mask; 3 `run_steps` on the card and on the CPU over a
+   16 × 256 tiled layout in fp32 and bf16; then, counted, the port's bench
+   (`gsrs_tpu_torch.bench.run_bench`: bf16, batch 131072,
+   ``neg_candidates=4``, a warm-up and 3 timed epochs), which must launch
+   K4 on every residual and ``occ`` side; one epoch under torch.profiler,
+   and the device time of each K4 side and each grouped hub product. K4
+   against its plain version on each of those six sides (fp32 and bf16,
+   the residual without and with its hash mask), and each grouped product
+   within one bf16 rounding of its fp32 result.
+9. Times each kernel by its device time (the kernels' own time in
+   torch.profiler's device-side events over a window of launches, after a
+   warm-up; CUDA events around the same calls are logged beside it where
+   the two differ by more than 10%) beside its bound, its plain version
+   and one PyTorch call (K3 and the library's Adam on copies of their
+   tables that cycle through more than the L2, as in a train step), and
+   the end-to-end numbers: request latency,
+   propagation forward and forward + backward, ms per step, seconds per
+   epoch and per eval, peak device memory, and the device's busy share
+   during requests and train steps (torch.profiler).
 
 Each phase zeroes every kernel's launch counter just before it drives its
 path and fails unless the kernels of that path launched. Prints
@@ -53,6 +72,8 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -76,9 +97,31 @@ ELL_BF16_ATOL = 1e-5  # ... plus the fp32 order difference near zero
 ADAM_ATOL = 2e-6  # K3 fp32 over 3 steps at lr 1e-2
 TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: parameters and losses
 METRIC_ATOL = 1e-6  # card vs CPU eval metrics
+# the tiled phase: bench.py's layout, and a small one for the card-vs-CPU steps
+TILED_G, TILED_C = 64, 2048
+SMALL_G, SMALL_C = 16, 256
+TILED_DROP = (0x2545F491, 0x9E3779B9, 0.6)  # hash dropout's key words (one above 2**31), keep
+# bf16 tiled layer against the fp32 result of the bf16-rounded inputs and weights: each
+# rounding to bf16 errs by at most 2^-8 of its value, and a path through the layer rounds at
+# most twice forward (the hub product or the residual sum, then their sum) and three times
+# backward (the hub cotangent, the occ sum, then the sum with the residual); every value on
+# the path is at most sum |w| |x|, which the limit scales
+TILED_BF16_ROUNDINGS = {"forward": 2, "backward": 3}
+TILED_BF16_ATOL = 1e-5  # plus the fp32 order difference near zero
+# bf16 tiled training, card vs CPU after 3 Adam steps at lr 1e-3: the layers round in other
+# orders, so gradients differ by about one bf16 rounding (2^-8 relative). Adam's update
+# m/sqrt(v) barely moves with that, except where a gradient sits at the rounding noise and
+# its sign can flip (a difference of up to 2 lr a step): the losses agree within 2^-8 of
+# their size, at most this share of parameters differ by more than TILED_PARAM_ATOL, and
+# none by more than 2 lr a step
+TILED_BF16_LOSS_RTOL = 2.0**-8
+TILED_PARAM_ATOL = 1e-4
+TILED_BF16_PARAM_SHARE = 1e-3
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+L2_BYTES = 50 * 2**20  # the H100's L2: a timing meant to read HBM cycles through more
 KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam")
 SOURCES = {
     "masked_scores": "gsrs_tpu_torch/csrc/masked_scores.cu",
@@ -123,6 +166,58 @@ def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn``: the device time of the
+    kernels and copies its ``reps`` calls launched (torch.profiler,
+    device-side events only), so no host dispatch enters the figure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(t for _, t, _ in device_rows(prof))
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / reps
+
+
+def device_rows(prof):
+    """[(name, device µs, calls)] of the kernels and copies a profile
+    saw. Only device-side events are summed: a CPU operator's device time
+    is that of the kernels it launched, which are counted already, and a
+    `record_function` range (torch.optim's ``Optimizer.step#…``) also
+    appears on the device timeline as a user annotation spanning its
+    kernels, which would count them twice."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_ms(fn, reps: int, what: str, warmup: int = 5) -> dict:
+    """{"ms": device time per call (`device_ms`), "events_ms": CUDA events
+    around the same number of back-to-back calls}. The events also time
+    the host's enqueue of each call; where they differ from the device
+    time by more than 10%, both are logged."""
+    t = dict(ms=device_ms(fn, reps, warmup), events_ms=cuda_ms(fn, reps, warmup))
+    if abs(t["events_ms"] - t["ms"]) > 0.1 * t["ms"]:
+        log(f"[time] {what}: device {t['ms'] * 1e3:.1f} us a call, CUDA events "
+            f"{t['events_ms'] * 1e3:.1f} us")
+    return t
+
+
+def cold_copies(make, nbytes: int):
+    """An endless cycle over copies made by ``make()``, each of ``nbytes``,
+    enough of them that between two uses of one copy the others touch
+    twice the L2: a call timed on the next copy reads HBM, as it does
+    inside a train step."""
+    return itertools.cycle([make() for _ in range(1 + -(-2 * L2_BYTES // nbytes))])
 
 
 def roofline(nbytes: float, flops: float):
@@ -324,22 +419,26 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
         ("masked_scores", ie, rows, False),
         ("masked_scores_bitplane", bp_items_t, bp_rows, True),
     ):
-        ms = cuda_ms(lambda: scoring.masked_scores(u, it, bits, bitplane=flag), reps=200, warmup=10)
-        plain_ms = cuda_ms(lambda: masked_scores_reference(u, it, bits, bitplane=flag), reps=50)
-        library_ms = cuda_ms(lambda: torch.matmul(u, it.T), reps=200, warmup=10)
+        t = {k: kernel_ms(fn, reps, f"{name} {k}", warmup=10) for k, fn, reps in (
+            ("ms", lambda: scoring.masked_scores(u, it, bits, bitplane=flag), 200),
+            ("plain_ms", lambda: masked_scores_reference(u, it, bits, bitplane=flag), 50),
+            ("library_ms", lambda: torch.matmul(u, it.T), 200))}
+        ms, plain_ms, library_ms = (t[k]["ms"] for k in ("ms", "plain_ms", "library_ms"))
         b_ms, b_by = bound(u.shape[0], d, it.shape[0], bits.shape[1])
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=None, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            events_ms={k: v["events_ms"] for k, v in t.items()},
             shape=[int(u.shape[0]), int(d), int(it.shape[0])],
         ))
-        log(f"[time] {name}: {ms * 1e3:.1f} us/launch, bound {b_ms * 1e3:.1f} us ({b_by}), "
-            f"plain {plain_ms * 1e3:.1f} us, torch.matmul {library_ms * 1e3:.1f} us")
+        log(f"[time] {name}: {ms * 1e3:.1f} us/launch (device), bound {b_ms * 1e3:.1f} us "
+            f"({b_by}), plain {plain_ms * 1e3:.1f} us, torch.matmul {library_ms * 1e3:.1f} us")
     u_eval = ue[:2048].contiguous()
     bits_eval = seen[:2048].contiguous()
-    eval_ms = cuda_ms(lambda: scoring.masked_scores(u_eval, ie, bits_eval), reps=50, warmup=5)
-    eval_lib_ms = cuda_ms(lambda: torch.matmul(u_eval, ie.T), reps=50, warmup=5)
+    eval_ms = kernel_ms(lambda: scoring.masked_scores(u_eval, ie, bits_eval), 50,
+                        "masked_scores B=2048")["ms"]
+    eval_lib_ms = kernel_ms(lambda: torch.matmul(u_eval, ie.T), 50, "torch.matmul B=2048")["ms"]
     b_ms, b_by = bound(2048, d, ie.shape[0], bits_eval.shape[1])
     log(f"[time] masked_scores at the eval batch (2048 users): {eval_ms * 1e3:.1f} us, bound "
         f"{b_ms * 1e3:.1f} us ({b_by}), torch.matmul {eval_lib_ms * 1e3:.1f} us")
@@ -354,9 +453,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
 def profile_recommend(retriever, batches, rounds: int = 5) -> Optional[float]:
     """Device busy share of ``recommend`` (device time of all kernels and
     copies over the wall time of the window), with the kernels that take
-    it. Only device-side events are summed: a CPU operator's device time
-    is that of the kernels it launched, which are counted already."""
-    from torch.autograd import DeviceType
+    it (`device_rows`)."""
     from torch.profiler import ProfilerActivity, profile
 
     retriever.recommend(batches[0], k=K)  # warm
@@ -368,15 +465,14 @@ def profile_recommend(retriever, batches, rounds: int = 5) -> Optional[float]:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     calls = rounds * len(batches)
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_us = sum(t for _, t in rows)
+    rows = device_rows(prof)
+    device_us = sum(t for _, t, _ in rows)
     if not device_us:
         log("[profile] the profiler saw no device time: busy share not measured")
         return None
     log(f"[profile] recommend: {wall_us / calls:.1f} us wall, {device_us / calls:.1f} us "
         f"device per request of {BATCH} users (busy share {device_us / wall_us:.3f})")
-    for key, t in sorted(rows, key=lambda r: -r[1])[:6]:
+    for key, t, _ in sorted(rows, key=lambda r: -r[1])[:6]:
         log(f"[profile]   {t / calls:8.1f} us/request  {key[:90]}")
     return device_us / wall_us
 
@@ -422,11 +518,11 @@ def ell_side_check(table, x, mask, what: str) -> float:
 
 
 def ell_variants(table, x, mask, what: str) -> float:
-    """ell_side_check in fp32 and bf16, with and without the mask →
-    max fp32 abs error."""
+    """ell_side_check in fp32 and bf16, with and without the mask (if one
+    is given) → max fp32 abs error."""
     err32 = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for m in (None, mask):
+        for m in (None,) if mask is None else (None, mask):
             label = f"{what} {str(dtype)[6:]} {'masked' if m is not None else 'unmasked'}"
             err = ell_side_check(table, x.to(dtype), m, label)
             log(f"[kernel] {label}: max {'abs err' if dtype == torch.float32 else 'err/limit'}"
@@ -517,7 +613,7 @@ def probe_check(dev) -> None:
     out = gather_reduce(table, xt).sum(dim=1).cpu().numpy()
     ref = np.add.reduceat(x[idx].sum(axis=1), np.arange(0, M, B))
     check(np.allclose(out, ref, rtol=1e-4, atol=1e-3), "probe shape: kernel != probe oracle")
-    us = 1e3 * cuda_ms(lambda: gather_reduce(table, xt), reps=50)
+    us = 1e3 * kernel_ms(lambda: gather_reduce(table, xt), 50, "ell_gather_reduce probe")["ms"]
     log(f"[kernel] ell_gather_reduce at the probe's shape: matches np.add.reduceat "
         f"(max rel err {float(np.max(np.abs(out - ref) / np.maximum(np.abs(ref), 1))):.2e}); "
         f"{us:.1f} us/launch, {M / us:.0f} M gathered rows/s")
@@ -793,13 +889,16 @@ def time_ell(model, launches: int, per_step: float, err: float) -> dict:
             b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * d)
             b_slots_ms, _ = roofline(8 * slots + io, 2 * nnz * d)
             n_split = sum(work.splits.shape[0] for _, work in table._tables)
-            t = dict(ms=cuda_ms(lambda: gather_reduce(table, x, out=out), reps=200, warmup=100),
-                     plain_ms=cuda_ms(plain, reps=10),
-                     library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), reps=50),
-                     bound_ms=b_ms)
+            timed = {k: kernel_ms(fn, reps, f"ell_gather_reduce {name} {k}", warmup)
+                     for k, fn, reps, warmup in (
+                         ("ms", lambda: gather_reduce(table, x, out=out), 200, 100),
+                         ("plain_ms", plain, 10, 5),
+                         ("library_ms", lambda: torch.sparse.mm(csr, x), 50, 5))}
+            t = dict({k: v["ms"] for k, v in timed.items()}, bound_ms=b_ms)
             bound_by.add(b_by)
             sides[name] = dict(t, slots=slots, edges=nnz, split_rows=n_split,
-                               bound_ms_all_slots=b_slots_ms)
+                               bound_ms_all_slots=b_slots_ms,
+                               events_ms={k: v["events_ms"] for k, v in timed.items()})
             log(f"[time] ell_gather_reduce {name}: {len(table.buckets)} buckets, {slots} slots "
                 f"({nnz} edges, {n_split} rows split at S = {SPLIT_SLOTS}), "
                 f"{t['ms'] * 1e3:.1f} us/call, bound {b_ms * 1e3:.2f} us ({b_by}; "
@@ -814,7 +913,8 @@ def time_ell(model, launches: int, per_step: float, err: float) -> dict:
         sweep = {}
         for split in (64, 128, 256, 512, 1024):
             table = BucketTable(buckets, split=split)
-            sweep[split] = cuda_ms(lambda: gather_reduce(table, x, out=out), reps=200, warmup=100)
+            sweep[split] = kernel_ms(lambda: gather_reduce(table, x, out=out), 200,
+                                     f"ell_gather_reduce by_item S={split}", warmup=100)["ms"]
         log("[time] ell_gather_reduce by_item at split length S: " + ", ".join(
             f"S={k} {v * 1e3:.1f} us" for k, v in sweep.items()))
     return dict(name="ell_gather_reduce", route="cuda", source=SOURCES["ell_gather_reduce"],
@@ -824,39 +924,61 @@ def time_ell(model, launches: int, per_step: float, err: float) -> dict:
                 by_item_ms_at_split={str(k): v for k, v in sweep.items()}, **tot)
 
 
-def time_adam(model, launches: int, per_step: float, err: float) -> dict:
-    """K3 per launch, averaged over the two tables of a step."""
+def time_adam(model, launches: int, per_step: float, err: float, in_step_ms) -> dict:
+    """K3 per launch, averaged over the two tables of a step, by device
+    time; torch.optim.Adam(fused=True) over the same two tables in one
+    step, halved. Each call runs on the next of several copies of its
+    tables (`cold_copies`), so it reads HBM as in a train step, where K3's
+    time by the step's profile is ``in_step_ms``. The CUDA events figures
+    (host-bound for K3, whose wrapper's host work outlasts the kernel) are
+    kept beside them."""
     from gsrs_tpu_torch.train.fused_adam import FusedAdam, _adam_math, fused_adam_
 
     opt = FusedAdam(schedule=lambda c: 1e-3, backend="pallas")
     lr, c1, c2 = opt.scalars(10)
-    leaves = []
-    for p in (model.user_emb, model.item_emb):
-        p = p.detach().clone()
-        leaves.append((p, torch.zeros_like(p), torch.zeros_like(p), torch.randn_like(p) * 1e-3))
+    tables = [p.detach() for p in (model.user_emb, model.item_emb)]
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    for p, m, v, g in leaves:
-        tot["ms"] += cuda_ms(lambda: fused_adam_(p, m, v, g, lr, c1, c2, 0.9, 0.999, 1e-8),
-                             reps=100) / 2
+    events = dict(ms=0.0, plain_ms=0.0)
+    for p in tables:
+        sets = cold_copies(lambda: (p.clone(), torch.zeros_like(p), torch.zeros_like(p),
+                                    torch.randn_like(p) * 1e-3), 4 * p.numel() * p.element_size())
+        t = kernel_ms(lambda: fused_adam_(*next(sets), lr, c1, c2, 0.9, 0.999, 1e-8), 100,
+                      f"fused_adam {tuple(p.shape)}")
 
         def plain():
-            for dst, src in zip((p, m, v), _adam_math(p, m, v, g, lr, c1, c2, 0.9, 0.999, 1e-8)):
+            q, m, v, g = next(sets)
+            for dst, src in zip((q, m, v), _adam_math(q, m, v, g, lr, c1, c2, 0.9, 0.999, 1e-8)):
                 dst.copy_(src)
 
-        tot["plain_ms"] += cuda_ms(plain, reps=20) / 2
+        tp = kernel_ms(plain, 20, f"fused_adam plain {tuple(p.shape)}")
+        for k, tk in (("ms", t), ("plain_ms", tp)):
+            tot[k] += tk["ms"] / 2
+            events[k] += tk["events_ms"] / 2
         tot["bound_ms"] += roofline(28 * p.numel(), 12 * p.numel())[0] / 2
-    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
-    for q, (_, _, _, g) in zip(params, leaves):
-        q.grad = g.clone()
-    lib = torch.optim.Adam(params, lr=1e-3, fused=True)
-    tot["library_ms"] = cuda_ms(lib.step, reps=100) / 2
-    n = sum(p.numel() for p, _, _, _ in leaves)
-    log(f"[time] fused_adam: {tot['ms'] * 1e3:.1f} us/launch (2 launches, {n} elements a step), "
-        f"bound {tot['bound_ms'] * 1e3:.1f} us (bytes), plain {tot['plain_ms'] * 1e3:.1f} us, "
-        f"torch.optim.Adam(fused=True) {2 * tot['library_ms'] * 1e3:.1f} us a step")
+
+    def library():
+        params = [torch.nn.Parameter(p.clone()) for p in tables]
+        for q in params:
+            q.grad = torch.randn_like(q) * 1e-3
+        return torch.optim.Adam(params, lr=1e-3, fused=True)
+
+    libs = cold_copies(library, 4 * sum(p.numel() * p.element_size() for p in tables))
+    tl = kernel_ms(lambda: next(libs).step(), 100, "torch.optim.Adam(fused=True), both tables")
+    tot["library_ms"], events["library_ms"] = tl["ms"] / 2, tl["events_ms"] / 2
+    n = sum(p.numel() for p in tables)
+    in_step = "not measured" if in_step_ms is None else f"{in_step_ms * 1e3:.1f} us"
+    log(f"[time] fused_adam: {tot['ms'] * 1e3:.1f} us/launch device from HBM (2 launches, {n} "
+        f"elements a step; CUDA events {events['ms'] * 1e3:.1f} us; inside a train step "
+        f"{in_step}), bound {tot['bound_ms'] * 1e3:.1f} us (bytes) = "
+        f"{tot['bound_ms'] / tot['ms']:.2f} of its time, plain {tot['plain_ms'] * 1e3:.1f} us, "
+        f"torch.optim.Adam(fused=True) {2 * tot['library_ms'] * 1e3:.1f} us device a step for "
+        f"both tables (CUDA events {2 * events['library_ms'] * 1e3:.1f} us)")
+    check(tot["ms"] >= tot["bound_ms"], "fused_adam timed under its HBM bound: the tables did "
+          "not leave the L2")
     return dict(name="fused_adam", route="cuda", source=SOURCES["fused_adam"],
                 replaces=REPLACES["fused_adam"], launches=launches, max_abs_err=err,
-                bound_by="bytes", launches_per_step=per_step,
+                bound_by="bytes", launches_per_step=per_step, events_ms=events,
+                in_step_ms=in_step_ms,
                 shape=[int(model.n_users) + int(model.m_items), int(model.cfg.embedding_dim)],
                 **tot)
 
@@ -864,7 +986,6 @@ def time_adam(model, launches: int, per_step: float, err: float) -> dict:
 def time_training(dev, train: dict) -> dict:
     """Propagation forward and forward + backward, and the device's busy
     share of train steps (torch.profiler, device-side events only)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gsrs_tpu_torch.ops.sampling import sample_epoch
@@ -895,8 +1016,7 @@ def time_training(dev, train: dict) -> dict:
         state, _ = tr.run_steps(state, *batches)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     device_us = sum(t for _, t, _ in rows)
     busy = device_us / wall_us if device_us else None
     if busy is None:
@@ -906,9 +1026,337 @@ def time_training(dev, train: dict) -> dict:
             f"{device_us / 10:.1f} us device per step (busy share {busy:.3f})")
         for key, t, n in sorted(rows, key=lambda r: -r[1])[:12]:
             log(f"[profile]   {t / 10:9.1f} us/step  {n / 10:6.1f} calls/step  {key[:80]}")
+    adam = [(t, n) for key, t, n in rows if "fused_adam_kernel" in key]
     return dict(fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, train_device_busy=busy,
+                adam_in_step_ms=adam[0][0] / adam[0][1] / 1e3 if adam else None,
                 train_step_device_us=device_us / 10 if device_us else None,
                 train_step_wall_us=wall_us / 10)
+
+
+# -------------------------------------------------------------- tiled phase
+
+
+def rounded_ell(ell):
+    """The ELL graph with its weights rounded to bf16 (as K4 and the
+    tiled layout's bf16 dense blocks round them), kept in fp32."""
+    from gsrs_tpu_torch.ops.ell import EllBucket
+
+    def side(s):
+        return dataclasses.replace(s, buckets=tuple(
+            EllBucket(b.rows, b.cols, b.w.bfloat16().float(), b.eidx) for b in s.buckets))
+
+    return dataclasses.replace(ell, by_user=side(ell.by_user), by_item=side(ell.by_item))
+
+
+def layer_and_vjp(layer, graph, u, x, gu, gx, drop=None):
+    """(new_u, new_i, d_user, d_item) of one layer and its VJP for the
+    cotangents (gu, gx)."""
+    u, x = u.detach().requires_grad_(), x.detach().requires_grad_()
+    nu, ni = layer(graph, u, x, drop)
+    torch.autograd.backward((nu, ni), (gu, gx))
+    return nu.detach(), ni.detach(), u.grad, x.grad
+
+
+def tiled_layer_checks(dev, data, t32, ell) -> dict:
+    """(b) one tiled layer against the ELL layer, forward and VJP: fp32
+    within ELL_ATOL, and bf16 against the fp32 result of the bf16-rounded
+    inputs and weights within the rounding limit of TILED_BF16_ROUNDINGS;
+    (c) fp32 with a hash mask against the ELL layer with the same mask in
+    canonical edge order → {check: max error}."""
+    from gsrs_tpu_torch.ops.ell import ell_propagate_layer
+    from gsrs_tpu_torch.ops.hashdrop import canonical_hash_mask
+    from gsrs_tpu_torch.ops.tiled import tiled_masks, tiled_propagate_layer
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    u, x, gu, gx = (torch.randn(n, 64, device=dev, generator=g)
+                    for n in (data.n_users, data.m_items, data.n_users, data.m_items))
+    names = ("new_u", "new_i", "d_user", "d_item")
+    errs = {}
+    got = layer_and_vjp(tiled_propagate_layer, t32, u, x, gu, gx)
+    ref = layer_and_vjp(ell_propagate_layer, ell, u, x, gu, gx)
+    errs["fp32"] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    check(errs["fp32"] <= ELL_ATOL, f"tiled fp32 layer vs ELL: {errs['fp32']} > {ELL_ATOL}")
+
+    # bf16: the layout of bench.py (dense blocks rounded to bf16) on bf16 inputs
+    t16 = dataclasses.replace(t32, **{
+        k: dataclasses.replace(getattr(t32, k), dense=getattr(t32, k).dense.bfloat16())
+        for k in ("user_from_item", "item_from_user")})
+    b16 = [a.bfloat16() for a in (u, x, gu, gx)]
+    got = layer_and_vjp(tiled_propagate_layer, t16, *b16)
+    ell_r = rounded_ell(ell)
+    ref = layer_and_vjp(ell_propagate_layer, ell_r, *(a.float() for a in b16))
+    mag = layer_and_vjp(ell_propagate_layer, ell_r, *(a.float().abs() for a in b16))
+    worst = 0.0
+    for i, (a, want, m) in enumerate(zip(got, ref, mag)):
+        check(a.dtype == torch.bfloat16, f"tiled bf16 {names[i]} is {a.dtype}")
+        k = TILED_BF16_ROUNDINGS["forward" if i < 2 else "backward"]
+        limit = ((1 + 2.0**-8) ** k - 1) * m + TILED_BF16_ATOL
+        worst = max(worst, float(((a.float() - want).abs() / limit).max()))
+    errs["bf16_over_limit"] = worst
+    check(worst <= 1.0, f"tiled bf16 layer: error {worst}x its rounding limit")
+
+    users = torch.from_numpy(data.train_users).to(dev)
+    items = torch.from_numpy(data.train_items).to(dev)
+    mask = canonical_hash_mask(users, items, TILED_DROP)
+    got = layer_and_vjp(tiled_propagate_layer, t32, u, x, gu, gx, tiled_masks(t32, TILED_DROP))
+    ref = layer_and_vjp(ell_propagate_layer, ell, u, x, gu, gx, mask)
+    errs["fp32_hash_mask"] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    check(errs["fp32_hash_mask"] <= ELL_ATOL,
+          f"tiled layer with a hash mask vs ELL: {errs['fp32_hash_mask']} > {ELL_ATOL}")
+    kept = float((mask > 0).float().mean())
+    log(f"[tiled] layer vs ELL, forward and VJP: fp32 max abs err {errs['fp32']:.2e}; bf16 "
+        f"{worst:.3f} of its rounding limit; fp32 with a hash mask (keep 0.6, kept {kept:.4f}) "
+        f"{errs['fp32_hash_mask']:.2e}")
+    return errs
+
+
+def tiled_card_vs_cpu(dev, data, orders) -> dict:
+    """(d) one seeded model on the card and on the CPU, a SMALL_G × SMALL_C
+    tiled layout over the bench layout's order, the same 3 triplet
+    batches through run_steps, in fp32 and bf16 → max differences."""
+    from gsrs_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
+    from gsrs_tpu_torch.data.adjacency import build_graph, normalized_edge_weights
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.ops.sampling import make_sampler_state, sample_epoch
+    from gsrs_tpu_torch.ops.tiled import _build_tiled_graph
+    from gsrs_tpu_torch.train.trainer import Trainer
+
+    graph = build_graph(data)
+    users, items = data.train_users.astype(np.int64), data.train_items.astype(np.int64)
+    w = normalized_edge_weights(users, items, data.user_degrees, data.item_degrees)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    batches = [t.cpu() for t in sample_epoch(g, make_sampler_state(data, dev), 3 * 8192, 8192,
+                                              neg_candidates=4)]
+    out = {}
+    for bf16 in (False, True):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        layout = _build_tiled_graph(users, items, w.astype(np.float32), data.n_users,
+                                    data.m_items, SMALL_G, SMALL_C, dtype, 4, 0, orders)
+        cfg = ExperimentConfig(
+            model=ModelConfig(num_layers=3, embedding_dim=64, bf16_compute=bf16,
+                              spmm_mode="tiled", tiled_groups=SMALL_G, tiled_cols=SMALL_C),
+            train=TrainConfig(batch_size=8192, seed=SEED, neg_candidates=4))
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            model = build_model(cfg.model, graph, ell=layout, device=device)
+            tr = Trainer(cfg, data, graph, model, run_eval=False, device=device)
+            t0 = time.perf_counter()
+            state, losses = tr.run_steps(tr.init_state(), *batches)
+            losses = losses.cpu()
+            runs.append((losses, {k: v.detach().cpu() for k, v in state.params.items()}))
+            log(f"[tiled] 3 run_steps {str(dtype)[6:]} G={SMALL_G} C={SMALL_C} on {device}: "
+                f"losses {losses.tolist()} ({time.perf_counter() - t0:.2f} s)")
+        (l_card, p_card), (l_cpu, p_cpu) = runs
+        diff = torch.cat([(p_card[k] - p_cpu[k]).abs().reshape(-1) for k in p_cpu])
+        res = dict(loss=float((l_card - l_cpu).abs().max()), param_max=float(diff.max()),
+                   param_share_over=float((diff > TILED_PARAM_ATOL).float().mean()))
+        if bf16:
+            check(res["loss"] <= TILED_BF16_LOSS_RTOL * float(l_cpu.abs().max()),
+                  f"bf16 card vs CPU losses differ by {res['loss']}")
+            check(res["param_share_over"] <= TILED_BF16_PARAM_SHARE,
+                  f"bf16 card vs CPU: {res['param_share_over']} of the parameters differ by "
+                  f"more than {TILED_PARAM_ATOL}")
+            check(res["param_max"] <= 2 * 3 * cfg.train.lr,
+                  f"bf16 card vs CPU parameters differ by {res['param_max']}")
+        else:
+            check(res["loss"] <= TRAIN_ATOL and res["param_max"] <= TRAIN_ATOL,
+                  f"fp32 tiled card vs CPU: {res}")
+        out[str(dtype)[6:]] = res
+        log(f"[tiled] card vs CPU after 3 steps, {str(dtype)[6:]}: max loss diff "
+            f"{res['loss']:.2e}, max parameter diff {res['param_max']:.2e}, share over "
+            f"{TILED_PARAM_ATOL}: {res['param_share_over']:.2e}")
+    return out
+
+
+def tiled_k4_checks(model) -> float:
+    """K4 against its plain version (`ell_variants`, fp32 and bf16) on the
+    six sides the bench path gives it: each direction's residual forward
+    (dst side) and backward (src side), without and with the residual's
+    hash mask, and ``occ`` (unit weights over the G·C hub slots, no mask)
+    → max fp32 abs error."""
+    from gsrs_tpu_torch.ops.tiled import tiled_masks
+
+    dev, d = model.user_emb.device, model.cfg.embedding_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n_src = {"user_from_item": model.m_items, "item_from_user": model.n_users}
+    n_dst = {"user_from_item": model.n_users, "item_from_user": model.m_items}
+    err = 0.0
+    for name, masks in zip(("user_from_item", "item_from_user"),
+                           tiled_masks(model.ell, TILED_DROP)):
+        t = getattr(model.ell, name)
+        for side_name, side, x, mask in (
+            ("residual fwd", t.residual.by_user, torch.randn(n_src[name], d, device=dev,
+                                                             generator=g), masks.residual),
+            ("residual bwd", t.residual.by_item, torch.randn(n_dst[name], d, device=dev,
+                                                             generator=g), masks.residual),
+            # ≤ G unit-weight slots a row: inputs of 1/sqrt(G) keep the sums O(1)
+            ("occ", t.occ, torch.randn(t.groups * t.cols, d, device=dev, generator=g)
+             / t.groups**0.5, None),
+        ):
+            err = max(err, ell_variants(side.table, x, mask,
+                                        f"ell_gather_reduce tiled {name} {side_name}"))
+    return err
+
+
+def hub_product_rounding(a, b) -> dict:
+    """The bf16 grouped product against the fp32 product of the same
+    inputs, as a share of one rounding to bf16 (2^-8 of sum |a| |b|, plus
+    TILED_BF16_ATOL), through the port's `_hub_product` (fp32 reduction)
+    and through `torch.bmm` under PyTorch's default (which lets cuBLAS add
+    split-K partials in bf16) → {"fp32_reduction": x, "default": x}."""
+    from gsrs_tpu_torch.ops.tiled import _hub_product
+
+    ref = torch.bmm(a.float(), b.float())
+    limit = 2.0**-8 * torch.bmm(a.float().abs(), b.float().abs()) + TILED_BF16_ATOL
+    out = {"fp32_reduction": _hub_product(a, b), "default": torch.bmm(a, b)}
+    return {k: float(((v.float() - ref).abs() / limit).max()) for k, v in out.items()}
+
+
+def time_tiled(model) -> dict:
+    """Device time per call of each K4 side of the bench layout (bf16)
+    beside its bound over its real slots, and of the grouped hub products
+    (`torch.bmm`, forward and on the transposed view) beside theirs."""
+    from gsrs_tpu_torch.ops.ell import _apply_side
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+    from gsrs_tpu_torch.ops.tiled import _hub_product
+
+    d = model.cfg.embedding_dim
+    g = torch.Generator(device=model.user_emb.device).manual_seed(SEED + 4)
+    n_src = {"user_from_item": model.m_items, "item_from_user": model.n_users}
+    n_dst = {"user_from_item": model.n_users, "item_from_user": model.m_items}
+    sides, bmm = {}, {}
+    with torch.no_grad():
+        for name in ("user_from_item", "item_from_user"):
+            t = getattr(model.ell, name)
+            G, rows_g, C = t.groups, t.rows_g, t.cols
+            x_src = torch.randn(n_src[name], d, device=g.device, generator=g).bfloat16()
+            x_dst = torch.randn(n_dst[name], d, device=g.device, generator=g).bfloat16()
+            hub = torch.randn(G * C, d, device=g.device, generator=g).bfloat16()
+            for side_name, side, x in (("residual fwd", t.residual.by_user, x_src),
+                                       ("residual bwd", t.residual.by_item, x_dst),
+                                       ("occ", t.occ, hub)):
+                table = side.table
+                nnz = sum(int((b.w != 0).sum()) for b in side.buckets)
+                io = x.element_size() * (x.numel() + table.n_rows * d)
+                b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * d)
+                out = x.new_empty(table.n_rows + 1, d)
+                k4 = kernel_ms(lambda: gather_reduce(table, x, out=out), 100,
+                               f"tiled K4 {name} {side_name}")
+                apply = kernel_ms(lambda: _apply_side(side, x), 100,
+                                  f"tiled apply {name} {side_name}")
+                sides[f"{name} {side_name}"] = dict(
+                    ms=k4["ms"], events_ms=k4["events_ms"], apply_ms=apply["ms"], bound_ms=b_ms, bound_by=b_by, edges=nnz,
+                    rows=side.n_rows, buckets=len(side.buckets))
+            dd = t.dense.view(G, rows_g, C)
+            xg = x_src.index_select(0, t.top_src.reshape(-1)).reshape(G, C, d)
+            gy = x_dst.index_select(0, t.row_nat).view(G, rows_g, d)
+            b_ms = 1e3 * max(dd.numel() * dd.element_size() / PEAK_BYTES_PER_S,
+                             2 * dd.numel() * d / PEAK_BF16_FLOPS)
+            for kind, a, b in (("forward", dd, xg), ("transpose", dd.transpose(1, 2), gy)):
+                ms = kernel_ms(lambda: _hub_product(a, b), 100, f"tiled {name} bmm {kind}")
+                bmm[f"{name} {kind}"] = dict(ms=ms["ms"], events_ms=ms["events_ms"],
+                                             bound_ms=b_ms, shape=[G, rows_g, C, d],
+                                             rounding=hub_product_rounding(a, b))
+    for k, v in sides.items():
+        log(f"[time] tiled K4 {k}: {v['ms'] * 1e3:.1f} us/call (bf16, {v['buckets']} buckets, "
+            f"{v['edges']} slots of weight != 0, {v['rows']} rows), bound "
+            f"{v['bound_ms'] * 1e3:.2f} us ({v['bound_by']}); the side's whole apply (zero row, "
+            f"K4, assemble gather) {v['apply_ms'] * 1e3:.1f} us")
+    for k, v in bmm.items():
+        r = v["rounding"]
+        log(f"[time] tiled bmm {k} {v['shape']}: {v['ms'] * 1e3:.1f} us/call, bound "
+            f"{v['bound_ms'] * 1e3:.1f} us (the dense block read once); error against fp32 "
+            f"{r['fp32_reduction']:.3f} of one bf16 rounding (PyTorch's default reduction "
+            f"{r['default']:.3f})")
+        check(r["fp32_reduction"] <= 1.0, f"tiled bmm {k}: {r['fp32_reduction']} roundings")
+    return dict(k4_sides=sides, bmm=bmm)
+
+
+def tiled_phase(dev, data) -> dict:
+    """The bench.py configuration: the tiled layout (G = 64 groups of
+    C = 2048 hub columns, bf16) on the training data, (a) build seconds
+    and dense coverage, (b)-(c) layer checks, (d) card vs CPU, (e) the
+    bench through `gsrs_tpu_torch.bench.run_bench` (counted), (f) a
+    profiled epoch and per-call times."""
+    from gsrs_tpu_torch import bench
+    from gsrs_tpu_torch.data.adjacency import normalized_edge_weights
+    from gsrs_tpu_torch.ops.ell import ell_from_interactions
+    from gsrs_tpu_torch.ops.reorder import spectral_cluster_order
+    from gsrs_tpu_torch.ops.sampling import sample_epoch
+    from gsrs_tpu_torch.ops.tiled import _build_tiled_graph
+
+    users, items = data.train_users.astype(np.int64), data.train_items.astype(np.int64)
+    w = normalized_edge_weights(users, items, data.user_degrees, data.item_degrees)
+    t0 = time.perf_counter()
+    orders = spectral_cluster_order(users, items, data.n_users, data.m_items, n_clusters=TILED_G)
+    order_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t32 = _build_tiled_graph(users, items, w.astype(np.float32), data.n_users, data.m_items,
+                             TILED_G, TILED_C, torch.float32, 4, 0, orders)
+    layout_s = time.perf_counter() - t0
+    E = data.train_size
+    coverage = {k: 1.0 - getattr(t32, k).res_dst.numel() / E
+                for k in ("user_from_item", "item_from_user")}
+    log(f"[tiled] G={TILED_G} C={TILED_C} on {E} edges: spectral order {order_s:.2f} s, "
+        f"layout {layout_s:.2f} s (host); dense coverage user_from_item "
+        f"{coverage['user_from_item']:.4f}, item_from_user {coverage['item_from_user']:.4f}")
+    checks = tiled_layer_checks(dev, data, t32.to(dev), ell_from_interactions(data).to(dev))
+    del t32
+    card_vs_cpu = tiled_card_vs_cpu(dev, data, orders)
+
+    # ---- the main path, counted: bench.py's configuration through the port's bench
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = bench.run_bench(dev, data)
+    launches = read_counts()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    tr, model = out["trainer"], out["trainer"].model
+    steps = (1 + bench.N_TIMED_EPOCHS) * out["steps_per_epoch"]
+    tables = {}
+    for name in ("user_from_item", "item_from_user"):
+        t = getattr(model.ell, name)
+        for side_name, side in (("residual fwd", t.residual.by_user),
+                                ("residual bwd", t.residual.by_item), ("occ", t.occ)):
+            tables[f"{name} {side_name}"] = side.table.launches
+    log(f"[tiled] bench: {out['epoch_s']:.4f} s/epoch ({out['steps_per_epoch']} steps of "
+        f"{tr.cfg.train.batch_size}), warm-up epoch {out['warmup_s']:.2f} s, graph + layout build "
+        f"{out['build_s']:.2f} s; epoch losses {out['losses']}; {steps} steps; launches "
+        f"{launches}; K4 calls by side {tables}; peak device memory {peak_mib:.1f} MiB")
+    check(all(np.isfinite(out["losses"])), f"bench losses {out['losses']}")
+    for side, n in tables.items():
+        check(n >= model.cfg.num_layers * steps, f"K4 launched {n} times on the {side} side "
+              f"in {steps} steps")
+    k4_err = tiled_k4_checks(model)
+
+    # ---- (f) one epoch under the profiler: device time by kernel per step
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out["state"], _ = tr.train_epoch(out["state"])
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = device_rows(prof)
+    device_us = sum(t for _, t, _ in rows)
+    n = out["steps_per_epoch"]
+    busy = device_us / wall_us
+    log(f"[profile] bench epoch ({n} steps + sampling): {wall_us / n:.1f} us wall, "
+        f"{device_us / n:.1f} us device per step (busy share {busy:.3f})")
+    top = [(key, t / n, c / n) for key, t, c in sorted(rows, key=lambda r: -r[1])[:16]]
+    for key, t, c in top:
+        log(f"[profile]   {t:9.1f} us/step  {c:6.1f} calls/step  {key[:80]}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B = tr.cfg.train.batch_size
+    sample_us = 1e3 * kernel_ms(lambda: sample_epoch(g, tr.sampler_state, n * B, B,
+                                                     neg_candidates=4), 5, "sampler")["ms"]
+    log(f"[time] sampler, one epoch of {n} x {B} triplets: {sample_us:.1f} us device")
+    times = time_tiled(model)
+    return dict(order_s=order_s, layout_s=layout_s, coverage=coverage, checks=checks,
+                card_vs_cpu=card_vs_cpu, epoch_s=out["epoch_s"], losses=out["losses"],
+                build_s=out["build_s"], launches=launches, k4_calls_by_side=tables,
+                peak_mib=peak_mib, step_device_us=device_us / n, step_wall_us=wall_us / n,
+                busy=busy, sampler_epoch_us=sample_us, k4_err=k4_err,
+                profile_top=top, **times)
 
 
 def main() -> int:
@@ -944,6 +1392,7 @@ def main() -> int:
     card_vs_cpu_phase(dev, train)
     ev = eval_phase(dev, train)
     drv = drive_phase(dev)
+    tiled = tiled_phase(dev, data)
     times = time_training(dev, train)
 
     kernels = serve["kernels"]
@@ -958,10 +1407,15 @@ def main() -> int:
     per_step = {"ell_gather_reduce": train["launches"]["ell_gather_reduce"] / train["steps"],
                 "fused_adam": train["launches"]["fused_adam"] / pallas_steps}
     main_launches = {name: serve["launches"][name] + train["launches"][name]
-                     + ev["launches"][name] for name in per_step}
-    for name, timer in (("fused_adam", time_adam), ("ell_gather_reduce", time_ell)):
-        kernels.append(timer(train["trainer"].model, main_launches[name], per_step[name],
-                             errs[name]))
+                     + ev["launches"][name] + tiled["launches"][name] for name in per_step}
+    model = train["trainer"].model
+    kernels.append(time_adam(model, main_launches["fused_adam"], per_step["fused_adam"],
+                             errs["fused_adam"], times["adam_in_step_ms"]))
+    kernels.append(time_ell(model, main_launches["ell_gather_reduce"],
+                            per_step["ell_gather_reduce"],
+                            max(errs["ell_gather_reduce"], tiled["k4_err"])))
+    kernels[-1]["launches_tiled_bench"] = tiled["launches"]["ell_gather_reduce"]
+    kernels[-1]["tiled_sides"] = tiled["k4_sides"]
     ms = train["ms"]
     log(json.dumps({
         "card": card, "propagation_ms": serve["prop_ms"],
@@ -975,6 +1429,7 @@ def main() -> int:
         "train_step_device_us": times["train_step_device_us"],
         "train_step_wall_us": times["train_step_wall_us"],
         "peak_device_mib_training": train["peak_mib"], "drive": drv,
+        "tiled": {k: v for k, v in tiled.items() if k not in ("k4_sides", "launches")},
         "smoke_s": time.perf_counter() - t_start,
     }))
     log(json.dumps({"kernels": kernels}))

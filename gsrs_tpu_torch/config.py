@@ -145,7 +145,7 @@ class EvalConfig:
     test_batch: int = 2048
     topks: Tuple[int, ...] = (20,)
     multicore: bool = False  # accepted for parity; metrics are vectorized
-    # only "exact" is ported (ROADMAP.md A2b)
+    # only "exact" is ported (ROADMAP.md A2c)
     topk_method: str = "exact"
     topk_recall_target: float = 0.98
     # True/"on" scores in the bit-plane layout (K2); "auto"/"off" in

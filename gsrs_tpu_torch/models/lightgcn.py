@@ -1,21 +1,23 @@
 """LightGCN as an `nn.Module` (port of `gsrs_tpu.models.lightgcn`).
 
 The module holds the embedding tables (and, with the pop gate, its four
-`nn.Linear` layers) as parameters, and the ELL layout of the normalized
-bipartite graph on the same device. `propagate` runs K layers and the
-mean over layers 0..K, with ELL edge dropout when given a generator;
-`final_embeddings` adds the pop-gate fusion; `bpr_loss` is the BPR loss
-with the reference's L2 term (``aux["reg"]``, scaled by the trainer's
-decay) and the gate-entropy bonus. Gradients flow through the ELL
-layer's scatter-free backward (`gsrs_tpu_torch.ops.ell`).
+`nn.Linear` layers) as parameters, and the layout of the normalized
+bipartite graph on the same device: ELL (`gsrs_tpu_torch.ops.ell`) or
+tiled (`gsrs_tpu_torch.ops.tiled`, dispatched on the layout's type as in
+the JAX package). `propagate` runs K layers and the mean over layers
+0..K, with edge dropout when given a generator; `final_embeddings` adds
+the pop-gate fusion; `bpr_loss` is the BPR loss with the reference's L2
+term (``aux["reg"]``, scaled by the trainer's decay) and the
+gate-entropy bonus. Gradients flow through each layout's scatter-free
+backward.
 
-Other layouts and item-item smoothing belong to later items of
-ROADMAP.md queue A and raise here.
+The hybrid and segment layouts and item-item smoothing belong to later
+items of ROADMAP.md queue A and raise here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,7 +28,11 @@ from gsrs_tpu_torch.config import ModelConfig
 from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
 from gsrs_tpu_torch.ops.ell import EllGraph, ell_from_graph, ell_propagate_layer
+from gsrs_tpu_torch.ops.hashdrop import hashdrop_from_generator
 from gsrs_tpu_torch.ops.spmm import edge_keep_mask
+from gsrs_tpu_torch.ops.tiled import (
+    TiledGraph, tiled_from_graph, tiled_masks, tiled_propagate_layer,
+)
 
 
 def popularity_scalar(item_degrees: torch.Tensor) -> torch.Tensor:
@@ -40,15 +46,16 @@ def popularity_scalar(item_degrees: torch.Tensor) -> torch.Tensor:
 
 
 class LightGCN(nn.Module):
-    """LightGCN on ``device`` (default ``cuda:0``). ``ell`` defaults to
-    the layout rebuilt from ``graph``; ``generator`` is a CPU
-    `torch.Generator` for `init_params` (seed 0 when None)."""
+    """LightGCN on ``device`` (default ``cuda:0``). ``ell`` (an `EllGraph`
+    or a `TiledGraph`) defaults to the layout of ``cfg.spmm_mode`` rebuilt
+    from ``graph``; ``generator`` is a CPU `torch.Generator` for
+    `init_params` (seed 0 when None)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         graph: BipartiteGraph,
-        ell: Optional[EllGraph] = None,
+        ell: Union[EllGraph, TiledGraph, None] = None,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -57,11 +64,10 @@ class LightGCN(nn.Module):
             raise ValueError(
                 f"spmm_mode must be 'ell', 'hybrid', 'tiled' or 'segment', got '{cfg.spmm_mode}'"
             )
-        if cfg.spmm_mode != "ell":
+        if cfg.spmm_mode not in ("ell", "tiled"):
             raise NotImplementedError(
-                f"spmm_mode='{cfg.spmm_mode}' is not ported yet: 'tiled' is ROADMAP.md A2b "
-                "(tiled layout and the bench.py configuration), 'hybrid' and 'segment' are "
-                "A3 (LightGCN extensions)"
+                f"spmm_mode='{cfg.spmm_mode}' is not ported yet: 'hybrid' and 'segment' are "
+                "ROADMAP.md A3 (LightGCN extensions)"
             )
         if cfg.use_item_item:
             raise NotImplementedError(
@@ -73,7 +79,13 @@ class LightGCN(nn.Module):
         self.n_users = graph.n_users
         self.m_items = graph.m_items
         if ell is None and cfg.num_layers > 0:
-            ell = ell_from_graph(graph)
+            if cfg.spmm_mode == "tiled":
+                ell = tiled_from_graph(
+                    graph, groups=cfg.tiled_groups, cols=cfg.tiled_cols,
+                    dtype=torch.bfloat16 if cfg.bf16_compute else torch.float32,
+                )
+            else:
+                ell = ell_from_graph(graph)
         self.ell = None if ell is None else ell.to(device)
         d = cfg.embedding_dim
         self.user_emb = nn.Parameter(torch.empty(self.n_users, d, device=device))
@@ -112,17 +124,24 @@ class LightGCN(nn.Module):
         ``bf16_compute`` the layers run in bf16 and only the mean is cast
         back, where the JAX package casts. With ``cfg.dropout`` and a
         ``dropout_generator`` (on the model's device), one edge keep mask
-        is drawn in canonical edge order and used by every layer."""
+        is drawn per call and used by every layer: in canonical edge order
+        on the ELL layout, the stateless hash mask on the tiled one."""
+        tiled = isinstance(self.ell, TiledGraph)
         u, i = self.user_emb, self.item_emb
         if self.cfg.bf16_compute:
             u, i = u.to(torch.bfloat16), i.to(torch.bfloat16)
         keep = None
         if dropout_generator is not None and self.cfg.dropout:
-            keep = edge_keep_mask(dropout_generator, self.graph, self.cfg.keep_prob, u.dtype)
+            if tiled:
+                keep = tiled_masks(self.ell, hashdrop_from_generator(dropout_generator,
+                                                                     self.cfg.keep_prob))
+            else:
+                keep = edge_keep_mask(dropout_generator, self.graph, self.cfg.keep_prob, u.dtype)
+        layer = tiled_propagate_layer if tiled else ell_propagate_layer
         acc_u, acc_i = u, i
         cur_u, cur_i = u, i
         for _ in range(self.cfg.num_layers):
-            cur_u, cur_i = ell_propagate_layer(self.ell, cur_u, cur_i, keep)
+            cur_u, cur_i = layer(self.ell, cur_u, cur_i, keep)
             acc_u = acc_u + cur_u
             acc_i = acc_i + cur_i
         scale = 1.0 / (self.cfg.num_layers + 1)

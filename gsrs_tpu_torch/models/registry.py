@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -11,6 +11,7 @@ from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.device import DeviceLike
 from gsrs_tpu_torch.models.lightgcn import LightGCN
 from gsrs_tpu_torch.ops.ell import EllGraph
+from gsrs_tpu_torch.ops.tiled import TiledGraph
 
 MODELS = {"lgn": LightGCN}
 # registered in the JAX package, ported with the graph zoo (ROADMAP.md A5)
@@ -20,7 +21,7 @@ NOT_PORTED = ("mf", "ngcf", "xsimgcl", "ultragcn")
 def build_model(
     cfg: ModelConfig,
     graph: BipartiteGraph,
-    ell: Optional[EllGraph] = None,
+    ell: Union[EllGraph, TiledGraph, None] = None,
     device: DeviceLike = None,
     generator: Optional[torch.Generator] = None,
 ) -> LightGCN:

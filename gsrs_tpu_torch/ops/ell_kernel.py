@@ -19,7 +19,8 @@ with split rows issues two kernels per call.
 Dispatch: CUDA tensors launch the kernel or raise (wrong device, dtype,
 shape or contiguity, a failed build or a refused launch); CPU tensors take
 `gather_reduce_reference` bucket by bucket. There is no fallback from one
-to the other. ``LAUNCHES`` counts the calls of the kernel's entry point.
+to the other. ``LAUNCHES`` counts the calls of the kernel's entry point,
+and each `BucketTable` counts those made for its own side.
 """
 
 from __future__ import annotations
@@ -169,6 +170,7 @@ class BucketTable:
             raise ValueError("the kernel indexes rows and slots of a bucket with int32")
         self._tables = self._launch_tables() if self.device.type == "cuda" else ()
         self._scratch = {}
+        self.launches = 0  # this table's kernel launches (one of LAUNCHES' count)
 
     def _launch_tables(self):
         tables, row0 = [], 0
@@ -241,6 +243,7 @@ def _launch(table: BucketTable, x, mask, out) -> None:
             if rc != 0:
                 raise RuntimeError(f"ell_gather_reduce kernel launch failed: CUDA error {rc}")
             LAUNCHES["ell_gather_reduce"] += 1
+            table.launches += 1
 
 
 def gather_reduce(

@@ -32,7 +32,7 @@ def topk_scores(
     """Row-wise top-k → (values, indices). Only 'exact' is ported."""
     if method != "exact":
         raise NotImplementedError(
-            f"top-k method {method!r} is not ported yet (ROADMAP.md A2b); use 'exact'"
+            f"top-k method {method!r} is not ported yet (ROADMAP.md A2c); use 'exact'"
         )
     return torch.topk(scores, k, dim=1)
 

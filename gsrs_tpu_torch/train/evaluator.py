@@ -51,7 +51,7 @@ class Evaluator:
                              f"{self.device}")
         if cfg.topk_method != "exact":
             raise NotImplementedError(
-                f"topk_method={cfg.topk_method!r} is not ported yet (ROADMAP.md A2b); "
+                f"topk_method={cfg.topk_method!r} is not ported yet (ROADMAP.md A2c); "
                 "use 'exact'")
         self.cfg = cfg
         self.model = model

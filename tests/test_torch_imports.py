@@ -42,7 +42,8 @@ def test_port_imports_nothing_of_jax():
     for name in ("serve", "convert", "kernels", "drive", "ops.scoring", "ops.ell",
                  "ops.ell_kernel", "ops.spmm", "ops.sampling", "ops.metrics", "models.lightgcn",
                  "data.adjacency", "train.fused_adam", "train.optim", "train.evaluator",
-                 "train.trainer"):
+                 "train.trainer", "ops.hybrid", "ops.reorder", "ops.hashdrop", "ops.tiled",
+                 "bench"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"

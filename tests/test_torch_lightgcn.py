@@ -110,7 +110,7 @@ def test_init_params_is_seeded_and_scaled():
 
 
 @pytest.mark.parametrize("change,err", [
-    (dict(spmm_mode="tiled"), NotImplementedError),
+    (dict(spmm_mode="segment"), NotImplementedError),
     (dict(spmm_mode="hybrid"), NotImplementedError),
     (dict(spmm_mode="csr"), ValueError),
     (dict(use_item_item=True), NotImplementedError),
