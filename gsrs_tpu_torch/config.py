@@ -114,7 +114,7 @@ class TrainConfig:
     use_scheduler: bool = False
     sched_milestones: Tuple[int, ...] = (120, 240, 360, 480)
     sched_gamma: float = 0.5
-    # checkpoints and logging: accepted for parity, not ported yet (ROADMAP.md A4)
+    # checkpoints and logging (Trainer.fit)
     checkpoint_dir: str = dataclasses.field(
         default_factory=lambda: os.path.join(_repo_root(), "checkpoints")
     )
@@ -145,7 +145,7 @@ class EvalConfig:
     test_batch: int = 2048
     topks: Tuple[int, ...] = (20,)
     multicore: bool = False  # accepted for parity; metrics are vectorized
-    # only "exact" is ported (ROADMAP.md A2c)
+    # "exact" | "approx" | "threshold" (gsrs_tpu_torch.ops.topk)
     topk_method: str = "exact"
     topk_recall_target: float = 0.98
     # True/"on" scores in the bit-plane layout (K2); "auto"/"off" in
@@ -175,3 +175,27 @@ class ExperimentConfig:
 
     def replace(self, **sections) -> "ExperimentConfig":
         return dataclasses.replace(self, **sections)
+
+
+def topks_from_string(s: str) -> Tuple[int, ...]:
+    """Parse "[20]"-style topks strings."""
+    import ast
+
+    v = ast.literal_eval(s)
+    if isinstance(v, int):
+        return (v,)
+    return tuple(int(x) for x in v)
+
+
+def milestones_from_string(s: str) -> Tuple[int, ...]:
+    """Parse "[120,240]" or "120,240"."""
+    import ast
+
+    s = s.strip()
+    try:
+        v = ast.literal_eval(s)
+        if isinstance(v, int):
+            return (v,)
+        return tuple(int(x) for x in v)
+    except (ValueError, SyntaxError):
+        return tuple(int(x) for x in s.strip("[]").split(",") if x.strip())

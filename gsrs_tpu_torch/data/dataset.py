@@ -3,7 +3,9 @@
 The LightGCN txt format: one line per user, ``uid iid iid …``; blank
 lines and lines with a uid but no items are skipped; ``item:timestamp``
 tokens are tolerated; node counts are max id + 1 over BOTH train and
-test files."""
+test files. Writers of that format and the lastfm loader are here too;
+node padding for a mesh (`pad_nodes_to_multiple`) comes with
+ROADMAP.md A7."""
 
 from __future__ import annotations
 
@@ -102,6 +104,54 @@ def parse_interaction_file(path: str) -> Tuple[np.ndarray, np.ndarray]:
     return np.asarray(users, dtype=np.int64), np.asarray(items, dtype=np.int64)
 
 
+def write_interaction_file(
+    path: str,
+    users: np.ndarray,
+    items: np.ndarray,
+    preserve_order: bool = False,
+) -> None:
+    """Write (users, items) pairs in the txt format. By default users and
+    each user's items are sorted ascending; ``preserve_order=True`` keeps
+    users in first-appearance order and items in input order."""
+    lines: Dict[int, List[int]] = {}
+    order: List[int] = []
+    for u, i in zip(users.tolist(), items.tolist()):
+        if u not in lines:
+            lines[u] = []
+            order.append(u)
+        lines[u].append(i)
+    if not preserve_order:
+        order = sorted(order)
+    with open(path, "w") as f:
+        for u in order:
+            its = lines[u] if preserve_order else sorted(lines[u])
+            f.write(f"{u} " + " ".join(str(i) for i in its) + "\n")
+
+
+def write_dataset_dir(out_dir, train_rows, test_rows):
+    """A dataset directory from per-user ``(org_user_id, [org_item_id…])``
+    rows: train.txt/test.txt with dense remapped ids (item order within a
+    row kept), and user_list.txt/item_list.txt mapping ``org_id
+    remap_id``. → (n_users, m_items)."""
+    user_ids = sorted(u for u, _ in train_rows)
+    item_ids = sorted({i for _, its in train_rows for i in its}
+                      | {i for _, its in test_rows for i in its})
+    u_map = {org: k for k, org in enumerate(user_ids)}
+    i_map = {org: k for k, org in enumerate(item_ids)}
+
+    os.makedirs(out_dir, exist_ok=True)
+    for name, rows in (("train.txt", train_rows), ("test.txt", test_rows)):
+        with open(os.path.join(out_dir, name), "w") as f:
+            for org_u, its in rows:
+                f.write(f"{u_map[org_u]} " + " ".join(str(i_map[i]) for i in its) + "\n")
+    for name, mapping in (("user_list.txt", u_map), ("item_list.txt", i_map)):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write("org_id remap_id\n")
+            for org, k in mapping.items():
+                f.write(f"{org} {k}\n")
+    return len(user_ids), len(item_ids)
+
+
 def load_dataset(dataset_dir: str, name: Optional[str] = None) -> InteractionData:
     """Load a train.txt/test.txt dataset directory."""
     tr_u, tr_i = parse_interaction_file(os.path.join(dataset_dir, "train.txt"))
@@ -119,6 +169,44 @@ def load_dataset(dataset_dir: str, name: Optional[str] = None) -> InteractionDat
         name=name or (os.path.basename(os.path.normpath(dataset_dir)) or "dataset"),
         n_users=_max(tr_u, te_u) + 1,
         m_items=_max(tr_i, te_i) + 1,
+        train_users=tr_u,
+        train_items=tr_i,
+        test_dict=_build_test_dict(te_u, te_i),
+    )
+
+
+def load_lastfm(dataset_dir: str) -> InteractionData:
+    """The lastfm format (data1.txt / test1.txt, ``user item weight``
+    triples, 1-based ids): ids shift to 0-based, duplicate pairs keep
+    their first occurrence."""
+
+    def _parse(path: str) -> Tuple[np.ndarray, np.ndarray]:
+        us: List[int] = []
+        its: List[int] = []
+        seen = set()
+        if not os.path.exists(path):
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        with open(path) as f:
+            for line in f:
+                toks = line.split()
+                if len(toks) < 2:
+                    continue
+                u, i = int(toks[0]) - 1, int(toks[1]) - 1
+                if (u, i) in seen:
+                    continue
+                seen.add((u, i))
+                us.append(u)
+                its.append(i)
+        return np.asarray(us, np.int64), np.asarray(its, np.int64)
+
+    tr_u, tr_i = _parse(os.path.join(dataset_dir, "data1.txt"))
+    te_u, te_i = _parse(os.path.join(dataset_dir, "test1.txt"))
+    vals_u = [int(a.max()) for a in (tr_u, te_u) if a.size]
+    vals_i = [int(a.max()) for a in (tr_i, te_i) if a.size]
+    return InteractionData(
+        name="lastfm",
+        n_users=(max(vals_u) + 1) if vals_u else 0,
+        m_items=(max(vals_i) + 1) if vals_i else 0,
         train_users=tr_u,
         train_items=tr_i,
         test_dict=_build_test_dict(te_u, te_i),

@@ -11,12 +11,16 @@ term (``aux["reg"]``, scaled by the trainer's decay) and the
 gate-entropy bonus. Gradients flow through each layout's scatter-free
 backward.
 
-The hybrid and segment layouts and item-item smoothing belong to later
-items of ROADMAP.md queue A and raise here.
+With ``use_item_item`` and an `ItemItemGraph`, `propagate` adds
+``i2i_alpha · A_i2i @ all_items`` after the fp32 cast of the layer mean;
+the product runs through the ELL gather-reduce (`ops.ell.ell_spmm`), its
+backward through the transposed side. The hybrid and segment layouts
+belong to ROADMAP.md A3 and raise here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -27,12 +31,55 @@ from torch import nn
 from gsrs_tpu_torch.config import ModelConfig
 from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
-from gsrs_tpu_torch.ops.ell import EllGraph, ell_from_graph, ell_propagate_layer
+from gsrs_tpu_torch.ops.ell import (
+    EllGraph, build_ell_graph, ell_from_graph, ell_propagate_layer, ell_spmm,
+)
 from gsrs_tpu_torch.ops.hashdrop import hashdrop_from_generator
 from gsrs_tpu_torch.ops.spmm import edge_keep_mask
 from gsrs_tpu_torch.ops.tiled import (
     TiledGraph, tiled_from_graph, tiled_masks, tiled_propagate_layer,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemItemGraph:
+    """The normalized item-item adjacency: the JAX package's padded edge
+    arrays sorted by destination item (``dst``, ``src``, ``w``; padding
+    repeats the last item id with weight 0), and ``ell``, the ELL form of
+    its ``n_edges`` real entries (``by_user``: rows ← cols for the
+    product, ``by_item``: its transpose for the backward)."""
+
+    dst: torch.Tensor  # (E_pad,) int32, sorted
+    src: torch.Tensor  # (E_pad,) int32
+    w: torch.Tensor  # (E_pad,) float32, 0 on padding
+    m_items: int
+    n_edges: int
+    ell: EllGraph
+
+    @staticmethod
+    def from_scipy(mat, edge_pad_multiple: int = 8192) -> "ItemItemGraph":
+        coo = mat.tocoo()
+        order = np.argsort(coo.row, kind="stable")
+        dst = coo.row[order].astype(np.int32)
+        src = coo.col[order].astype(np.int32)
+        w = coo.data[order].astype(np.float32)
+        pad = -(-max(dst.size, 1) // edge_pad_multiple) * edge_pad_multiple
+        last = np.int32(mat.shape[0] - 1)
+
+        def padded(x, fill):
+            out = np.full(pad, fill, dtype=x.dtype)
+            out[: x.size] = x
+            return torch.from_numpy(out)
+
+        m = int(mat.shape[0])
+        return ItemItemGraph(
+            dst=padded(dst, last), src=padded(src, last), w=padded(w, 0.0),
+            m_items=m, n_edges=int(dst.size), ell=build_ell_graph(dst, src, w, m, m),
+        )
+
+    def to(self, device) -> "ItemItemGraph":
+        return dataclasses.replace(self, dst=self.dst.to(device), src=self.src.to(device),
+                                   w=self.w.to(device), ell=self.ell.to(device))
 
 
 def popularity_scalar(item_degrees: torch.Tensor) -> torch.Tensor:
@@ -48,13 +95,15 @@ def popularity_scalar(item_degrees: torch.Tensor) -> torch.Tensor:
 class LightGCN(nn.Module):
     """LightGCN on ``device`` (default ``cuda:0``). ``ell`` (an `EllGraph`
     or a `TiledGraph`) defaults to the layout of ``cfg.spmm_mode`` rebuilt
-    from ``graph``; ``generator`` is a CPU `torch.Generator` for
-    `init_params` (seed 0 when None)."""
+    from ``graph``; ``i2i`` is used only with ``cfg.use_item_item`` (and
+    without it no smoothing runs, as in the JAX package); ``generator``
+    is a CPU `torch.Generator` for `init_params` (seed 0 when None)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         graph: BipartiteGraph,
+        i2i: Optional[ItemItemGraph] = None,
         ell: Union[EllGraph, TiledGraph, None] = None,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
@@ -68,10 +117,6 @@ class LightGCN(nn.Module):
             raise NotImplementedError(
                 f"spmm_mode='{cfg.spmm_mode}' is not ported yet: 'hybrid' and 'segment' are "
                 "ROADMAP.md A3 (LightGCN extensions)"
-            )
-        if cfg.use_item_item:
-            raise NotImplementedError(
-                "use_item_item is not ported yet (ROADMAP.md A3, LightGCN extensions)"
             )
         device = resolve_device(device)
         self.cfg = cfg
@@ -87,6 +132,9 @@ class LightGCN(nn.Module):
             else:
                 ell = ell_from_graph(graph)
         self.ell = None if ell is None else ell.to(device)
+        if i2i is not None and i2i.m_items != self.m_items:
+            raise ValueError(f"the i2i graph has {i2i.m_items} items, the model {self.m_items}")
+        self.i2i = i2i.to(device) if (cfg.use_item_item and i2i is not None) else None
         d = cfg.embedding_dim
         self.user_emb = nn.Parameter(torch.empty(self.n_users, d, device=device))
         self.item_emb = nn.Parameter(torch.empty(self.m_items, d, device=device))
@@ -120,12 +168,14 @@ class LightGCN(nn.Module):
     def propagate(
         self, dropout_generator: Optional[torch.Generator] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K-layer propagation + mean over layers 0..K, as fp32. With
-        ``bf16_compute`` the layers run in bf16 and only the mean is cast
-        back, where the JAX package casts. With ``cfg.dropout`` and a
-        ``dropout_generator`` (on the model's device), one edge keep mask
-        is drawn per call and used by every layer: in canonical edge order
-        on the ELL layout, the stateless hash mask on the tiled one."""
+        """K-layer propagation + mean over layers 0..K, as fp32, then the
+        i2i smoothing (in fp32) when the model has an i2i graph and
+        ``i2i_alpha`` > 0. With ``bf16_compute`` the layers run in bf16
+        and only the mean is cast back, where the JAX package casts. With
+        ``cfg.dropout`` and a ``dropout_generator`` (on the model's
+        device), one edge keep mask is drawn per call and used by every
+        layer: in canonical edge order on the ELL layout, the stateless
+        hash mask on the tiled one."""
         tiled = isinstance(self.ell, TiledGraph)
         u, i = self.user_emb, self.item_emb
         if self.cfg.bf16_compute:
@@ -145,7 +195,10 @@ class LightGCN(nn.Module):
             acc_u = acc_u + cur_u
             acc_i = acc_i + cur_i
         scale = 1.0 / (self.cfg.num_layers + 1)
-        return (acc_u * scale).float(), (acc_i * scale).float()
+        all_users, all_items = (acc_u * scale).float(), (acc_i * scale).float()
+        if self.i2i is not None and self.cfg.i2i_alpha > 0.0:
+            all_items = all_items + self.cfg.i2i_alpha * ell_spmm(self.i2i.ell, all_items)
+        return all_users, all_items
 
     # ------------------------------------------------------------- pop gate
     def _pop_vec(self) -> torch.Tensor:

@@ -306,3 +306,26 @@ def ell_propagate_layer(
     if edge_mask is not None:
         edge_mask = edge_mask.detach().float().contiguous()
     return _EllLayer.apply(graph, user_emb, item_emb, edge_mask)
+
+
+class _EllSpmm(torch.autograd.Function):
+    """``A @ x`` for a square A held as an EllGraph over its (row, col)
+    entries: the forward is the ``by_user`` side (rows ← cols), the
+    backward Aᵀ ĝ the ``by_item`` side (cols ← rows), built from the same
+    entries rather than assumed equal, so A need not be symmetric."""
+
+    @staticmethod
+    def forward(ctx, graph, x):
+        ctx.graph, ctx.dtype = graph, x.dtype
+        return _apply_side(graph.by_user, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _apply_side(ctx.graph.by_item, g).to(ctx.dtype)
+
+
+def ell_spmm(graph: EllGraph, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` through the ELL gather-reduce, forward and backward, for
+    the square A whose ELL form is ``graph`` (`build_ell_graph` over A's
+    entries as (row, col, value) with n_users = m_items = A's size)."""
+    return _EllSpmm.apply(graph, x)

@@ -9,11 +9,15 @@
   of the two packages interchange.
 
 CLI:
-  python -m gsrs_tpu_torch.serve query --artifact emb.npz --users 0 1 2 --k 20 [--device cpu]
+  python -m gsrs_tpu_torch.serve export --checkpoint_dir checkpoints --dataset_dir data/gowalla --out emb.npz [--quantize int8]
+  python -m gsrs_tpu_torch.serve query --artifact emb.npz --users 0 1 2 --k 20
 
-Not ported yet: ``export`` (it restores checkpoints, which come with the
-checkpoint port) and sharded serving (``mesh``/``--model_axis``, which
-comes with ``parallel/``); see ROADMAP.md queue A.
+``export`` restores the newest checkpoint of a training run (``last``,
+then the legacy name) into the model that ``model_meta.json`` describes
+(the flags describe it when that file is missing), propagates once and
+writes the artifact. Both run on ``cuda:0`` unless ``--device`` says
+otherwise. Not ported yet: sharded serving (``mesh``/``--model_axis``,
+ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -219,11 +223,102 @@ def load_retriever(
 # --------------------------------------------------------------------- CLI
 
 
+def model_config_from_meta(meta: dict):
+    """A `ModelConfig` from ``model_meta.json`` written by either package
+    (JSON lists become the dataclass's tuples)."""
+    from gsrs_tpu_torch.config import ModelConfig
+
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in meta.items()})
+
+
+def export_checkpoint(args) -> Retriever:
+    """``serve export``: checkpoint → artifact. → the Retriever written."""
+    import json
+    import os
+
+    import scipy.sparse as sp
+
+    from gsrs_tpu_torch.config import ModelConfig
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.data.dataset import load_dataset
+    from gsrs_tpu_torch.models.lightgcn import ItemItemGraph
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.ops.ell import ell_from_interactions
+    from gsrs_tpu_torch.train.checkpoint import CheckpointManager, legacy_name
+
+    if args.model_axis > 1:
+        raise NotImplementedError("serve export --model_axis > 1 (a checkpoint of a mesh run) "
+                                  "is not ported yet (ROADMAP.md A7)")
+    device = resolve_device(args.device)
+    data = load_dataset(args.dataset_dir)
+    graph = build_graph(data, cache_dir=args.dataset_dir)
+    # the model config the trainer wrote beside its checkpoints; the flags
+    # only for a run that left none
+    meta_path = os.path.join(args.checkpoint_dir, "model_meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            cfg = model_config_from_meta(json.load(f))
+        print(f"[serve] using {meta_path}")
+    else:
+        cfg = ModelConfig(
+            model=args.model, num_layers=args.layer, embedding_dim=args.recdim,
+            bf16_compute=args.bf16, use_pop_gate=args.use_pop_gate,
+            pop_hidden=args.pop_hidden, gate_hidden=args.gate_hidden,
+            pop_gate_temp=args.pop_gate_temp, use_item_item=args.use_item_item,
+            i2i_path=args.i2i_path, i2i_alpha=args.i2i_alpha,
+        )
+    i2i = None
+    if cfg.use_item_item and (cfg.i2i_path or args.i2i_path):
+        i2i = ItemItemGraph.from_scipy(sp.load_npz(cfg.i2i_path or args.i2i_path))
+    # the propagation runs on the ELL layout whatever layout trained it:
+    # every layout computes the same product
+    model = build_model(dataclasses.replace(cfg, spmm_mode="ell"), graph, i2i=i2i,
+                        ell=ell_from_interactions(data), device=device)
+    ckpt = CheckpointManager(args.checkpoint_dir)
+    path = ckpt.resolve_resume_path(
+        None, legacy_name(cfg.model, data.name, cfg.num_layers, cfg.embedding_dim))
+    if path is None:
+        raise SystemExit(f"no checkpoint under {args.checkpoint_dir}")
+    params = ckpt.restore(path)["params"]
+    missing = set(model.state_dict()) - set(params)
+    if missing:
+        raise ValueError(f"the checkpoint at {path} lacks {sorted(missing)}")
+    model.load_state_dict({k: params[k] for k in model.state_dict()})
+    r = retriever_from_model(model, data, device=device)
+    export_embeddings(r, args.out, quantize=args.quantize)
+    q = f" ({args.quantize})" if args.quantize else ""
+    print(f"[serve] exported {args.out}: {r.n_users} users × {r.m_items} items{q}")
+    return r
+
+
 def main(argv: Optional[list] = None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(prog="gsrs_tpu_torch.serve")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    exp = sub.add_parser("export", help="checkpoint → serving artifact")
+    exp.add_argument("--checkpoint_dir", required=True)
+    exp.add_argument("--dataset_dir", required=True)
+    exp.add_argument("--out", required=True)
+    exp.add_argument("--model_axis", type=int, default=1,
+                     help="the mesh's model axis the run trained with (only 1 is ported)")
+    exp.add_argument("--model", default="lgn")
+    exp.add_argument("--quantize", choices=["int8"], default=None,
+                     help="int8 per-row quantized tables, scored exactly in fp32")
+    exp.add_argument("--layer", type=int, default=3)
+    exp.add_argument("--recdim", type=int, default=64)
+    exp.add_argument("--bf16", action="store_true")
+    # used only without model_meta.json: they must match the training run
+    exp.add_argument("--use_pop_gate", action="store_true")
+    exp.add_argument("--pop_hidden", type=int, default=32)
+    exp.add_argument("--gate_hidden", type=int, default=64)
+    exp.add_argument("--pop_gate_temp", type=float, default=1.0)
+    exp.add_argument("--use_item_item", action="store_true")
+    exp.add_argument("--i2i_path", default=None)
+    exp.add_argument("--i2i_alpha", type=float, default=0.1)
+    exp.add_argument("--device", default=None, help="torch device (default cuda:0)")
+
     qry = sub.add_parser("query", help="artifact → recommendations")
     qry.add_argument("--artifact", required=True)
     qry.add_argument("--users", type=int, nargs="+", required=True)
@@ -234,6 +329,9 @@ def main(argv: Optional[list] = None) -> None:
     )
     qry.add_argument("--device", default=None, help="torch device (default cuda:0)")
     args = ap.parse_args(argv)
+    if args.cmd == "export":
+        export_checkpoint(args)
+        return
 
     r = load_retriever(
         args.artifact, use_pallas_scoring=args.use_pallas_scoring, device=args.device

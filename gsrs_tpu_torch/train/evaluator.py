@@ -4,9 +4,12 @@ One propagation per `run`, then the test users in padded batches of
 ``test_batch``: gather the batch's user rows, score the whole catalog
 with the train positives masked by the CUDA kernel of
 `gsrs_tpu_torch.ops.scoring` (K1, or K2 in the bit-plane branch), take
-the top ``max(topks)`` with `torch.topk`, and sum recall, precision and
-NDCG on the device. The padded tail carries user weight 0. The host reads
-the sums once, at the end of `run`.
+the top ``max(topks)`` by ``topk_method`` (`gsrs_tpu_torch.ops.topk`:
+exact, approx or threshold; in the bit-plane branch on the permuted
+columns, then mapped back), and sum recall, precision and NDCG on the
+device. The padded tail carries user weight 0. The host reads the sums
+once, at the end of `run` (the threshold method also reads one flag per
+batch).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from gsrs_tpu_torch.ops.scoring import (
     masked_scores,
     resolve_bitplane_scoring,
 )
+from gsrs_tpu_torch.ops.topk import topk_scores
 
 BITPLANE_BLOCK_M = 4096
 
@@ -49,10 +53,9 @@ class Evaluator:
         if model.user_emb.device != self.device:
             raise ValueError(f"the model is on {model.user_emb.device}, the Evaluator on "
                              f"{self.device}")
-        if cfg.topk_method != "exact":
-            raise NotImplementedError(
-                f"topk_method={cfg.topk_method!r} is not ported yet (ROADMAP.md A2c); "
-                "use 'exact'")
+        if cfg.topk_method not in ("exact", "approx", "threshold"):
+            raise ValueError(f"topk_method must be 'exact', 'approx' or 'threshold', got "
+                             f"{cfg.topk_method!r}")
         self.cfg = cfg
         self.model = model
         self.max_k = max(cfg.topks)
@@ -103,32 +106,48 @@ class Evaluator:
                 high = np.array([0xFFFFFFFF << (m % 32) & 0xFFFFFFFF], np.uint32)
                 self._ragged = int(high.view(np.int32)[0])
 
+    def _topk(self, scores: torch.Tensor) -> torch.Tensor:
+        return topk_scores(scores, self.max_k, self.cfg.topk_method,
+                           self.cfg.topk_recall_target)[1]
+
     def _top_items(self, u_emb: torch.Tensor, items: torch.Tensor, rows: torch.Tensor):
         """→ (top item ids (B, max_k), valid (B, max_k) float or None)."""
         if not self._bitplane:
-            return torch.topk(masked_scores(u_emb, items, rows), self.max_k, dim=1).indices, None
+            return self._topk(masked_scores(u_emb, items, rows)), None
         if self._ragged is not None:
             rows[:, -1] |= self._ragged
         rows = torch.cat([rows, self._pad_words], dim=1)
         scores = masked_scores(u_emb, items, rows, bitplane=True, block_m=BITPLANE_BLOCK_M)
-        top = self._bp_perm[torch.topk(scores, self.max_k, dim=1).indices]
+        top = self._bp_perm[self._topk(scores)]
         # phantom columns surface only for users whose whole row ties at
         # the mask value; their labels are zeroed and the ids clamped
         valid = (top < self._m).float()
         return top.clamp_(max=self._m - 1), valid
 
+    def _batches(self):
+        """One propagation, then per padded batch (users, weights, gt,
+        top item ids, valid or None)."""
+        all_users, items, _ = self.model.final_embeddings()
+        if self._bitplane:
+            items = F.pad(items, (0, 0, 0, self._m_pad - self._m))[self._bp_perm].contiguous()
+        for users, weights, gt in zip(self._users, self._weights, self._gt):
+            u_emb = all_users.index_select(0, users)
+            rows = self.train_bitset.index_select(0, users)
+            yield (users, weights, gt) + self._top_items(u_emb, items, rows)
+
+    @torch.no_grad()
+    def top_items(self) -> torch.Tensor:
+        """(n_test_users, max(topks)) top item ids of the test users, in
+        `InteractionData.test_users` order, by ``topk_method``."""
+        tops = [top for _, _, _, top, _ in self._batches()]
+        return torch.cat(tops)[: self.n_test_users]
+
     @torch.no_grad()
     def run(self) -> Dict[str, float]:
         """One propagation of the model's current parameters + every
         scoring batch → mean metrics over the real test users."""
-        all_users, items, _ = self.model.final_embeddings()
-        if self._bitplane:
-            items = F.pad(items, (0, 0, 0, self._m_pad - self._m))[self._bp_perm].contiguous()
         totals: Dict[str, torch.Tensor] = {}
-        for users, weights, gt in zip(self._users, self._weights, self._gt):
-            u_emb = all_users.index_select(0, users)
-            rows = self.train_bitset.index_select(0, users)
-            top, valid = self._top_items(u_emb, items, rows)
+        for users, weights, gt, top, valid in self._batches():
             labels = topk_labels(top, self.test_bitset, users)
             if valid is not None:
                 labels = labels * valid

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from gsrs_tpu_torch.config import TrainConfig
-from gsrs_tpu_torch.train.fused_adam import FusedAdam
+from gsrs_tpu_torch.train.fused_adam import FusedAdam, FusedAdamState
 
 Schedule = Callable[[int], float]
 
@@ -72,6 +72,46 @@ class ScheduledAdam:
 
 
 Optimizer = Union[ScheduledAdam, FusedAdam]
+
+
+def optimizer_state_dict(state, params: Dict[str, torch.nn.Parameter]) -> dict:
+    """The optimizer state as plain values and tensors, for a checkpoint:
+    the step count, and `torch.optim.Adam.state_dict()` (each
+    parameter's ``step`` and moments, by position in ``params``) or the
+    fused moments in the order of ``params``."""
+    if isinstance(state, FusedAdamState):
+        names = list(params)
+        return {"kind": "fused_adam", "count": int(state.count), "names": names,
+                "mu": [state.mu[n] for n in names], "nu": [state.nu[n] for n in names]}
+    return {"kind": "adam", "count": int(state.count), "torch": state.optimizer.state_dict()}
+
+
+def load_optimizer_state(optimizer: Optimizer, params: Dict[str, torch.nn.Parameter],
+                         saved: dict):
+    """A fresh state of ``optimizer`` over ``params`` holding ``saved``
+    (`optimizer_state_dict`'s), mapped back by the order of ``params``;
+    moments go to each parameter's device and dtype."""
+    fused = isinstance(optimizer, FusedAdam)
+    if saved["kind"] != ("fused_adam" if fused else "adam"):
+        raise ValueError(f"the checkpoint holds a {saved['kind']} state, the run's optimizer "
+                         f"is {type(optimizer).__name__}: use the same fused_adam setting")
+    state = optimizer.init(params)
+    if not fused:
+        state.optimizer.load_state_dict(saved["torch"])
+        return AdamState(int(saved["count"]), state.optimizer)
+    if list(saved["names"]) != list(params):
+        raise ValueError(f"the checkpoint's parameters {saved['names']} differ from the "
+                         f"model's {list(params)}")
+    moments = []
+    for tensors in (saved["mu"], saved["nu"]):
+        out = {}
+        for (name, p), t in zip(params.items(), tensors):
+            if t.shape != p.shape:
+                raise ValueError(f"{name}: saved moment {tuple(t.shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            out[name] = t.to(device=p.device, dtype=p.dtype).contiguous()
+        moments.append(out)
+    return FusedAdamState(int(saved["count"]), *moments)
 
 
 def make_optimizer(cfg: TrainConfig, steps_per_epoch: int) -> Tuple[Optimizer, Schedule]:

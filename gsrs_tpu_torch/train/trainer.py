@@ -8,15 +8,23 @@ gather-reduce kernel, the BPR loss plus ``decay · reg``, and Adam
 the host reads their mean once per epoch. Parameters live in the model
 and are updated in place.
 
-Ported so far: `init_state`, `train_epoch`, `run_steps`, `evaluate`,
-`current_lr` and ``epoch_samples`` on one device. `fit`, checkpoints and
-CSV/TensorBoard logging are ROADMAP.md A4; meshes larger than 1 × 1 are
-A7.
+`fit` runs the JAX trainer's loop: an eval before every
+``eval_every``-th epoch and a final one, best-NDCG checkpoints and early
+stop, the ``last`` checkpoint at its cadence, periodic legacy-named
+saves, CSV and TensorBoard logs, ``model_meta.json``, resume and
+``load_pretrained``. Checkpoints (`gsrs_tpu_torch.train.checkpoint`) hold
+the parameters, the optimizer state (its step count with it), the epoch
+and the best metric; restoring copies into the live parameters. Meshes
+larger than 1 × 1 are ROADMAP.md A7.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
+import os
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -27,8 +35,12 @@ from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.data.dataset import InteractionData
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
 from gsrs_tpu_torch.ops.sampling import make_sampler_state, sample_epoch
+from gsrs_tpu_torch.train.checkpoint import CheckpointManager, legacy_name
 from gsrs_tpu_torch.train.evaluator import Evaluator
-from gsrs_tpu_torch.train.optim import make_optimizer
+from gsrs_tpu_torch.train.logging import TensorboardWriter, make_train_csv, make_valid_csv
+from gsrs_tpu_torch.train.optim import (
+    load_optimizer_state, make_optimizer, optimizer_state_dict,
+)
 
 _SAMPLE, _DROPOUT = 0, 1  # the random streams of an epoch chunk
 
@@ -173,3 +185,174 @@ class Trainer:
 
     def current_lr(self, state: TrainState) -> float:
         return float(self.schedule(state.epoch * self.steps_per_epoch))
+
+    def _logged_lr(self, state: TrainState) -> float:
+        """The CSVs' lr as the JAX trainer writes it: the configured value
+        under a constant schedule (optax returns it as given), the float32
+        value of the step-indexed one."""
+        t_cfg = self.cfg.train
+        if not t_cfg.use_scheduler or not t_cfg.sched_milestones:
+            return t_cfg.lr
+        return self.current_lr(state)
+
+    # ------------------------------------------------------------ checkpoint
+    @functools.cached_property
+    def ckpt(self) -> CheckpointManager:
+        """The checkpoint directory's manager, made (with the directory) at
+        first use."""
+        return CheckpointManager(self.cfg.train.checkpoint_dir)
+
+    def _legacy_name(self) -> str:
+        m = self.cfg.model
+        return legacy_name(m.model, self.data.name, m.num_layers, m.embedding_dim)
+
+    def _ckpt_state(self, state: TrainState) -> Dict[str, Any]:
+        return {
+            "params": {k: p.detach() for k, p in state.params.items()},
+            "opt_state": optimizer_state_dict(state.opt_state, state.params),
+            "epoch": int(state.epoch),
+            "best_metric": float(state.best_metric),
+        }
+
+    def _restore(self, state: TrainState, saved: Dict[str, Any],
+                 weights_only: bool = False) -> TrainState:
+        """Copy a checkpoint's parameters into the live ones; unless
+        ``weights_only``, take its optimizer state, epoch and best metric."""
+        if set(saved["params"]) != set(state.params):
+            raise ValueError(f"the checkpoint's parameters {sorted(saved['params'])} differ "
+                             f"from the model's {sorted(state.params)}")
+        with torch.no_grad():
+            for name, p in state.params.items():
+                src = saved["params"][name]
+                if src.shape != p.shape:
+                    raise ValueError(f"{name}: checkpoint {tuple(src.shape)}, model "
+                                     f"{tuple(p.shape)}")
+                p.copy_(src)
+        if weights_only:
+            return state
+        return TrainState(
+            params=state.params,
+            opt_state=load_optimizer_state(self.optimizer, state.params, saved["opt_state"]),
+            epoch=int(saved["epoch"]),
+            best_metric=float(saved["best_metric"]),
+        )
+
+    def save_last(self, state: TrainState) -> None:
+        self.ckpt.save_last(self._ckpt_state(state))
+
+    def maybe_resume(self, state: TrainState) -> TrainState:
+        """Restore from the resume chain (an explicit ``resume_path``, then
+        ``last``, then the legacy name); ``state`` unchanged when none
+        exists."""
+        path = self.ckpt.resolve_resume_path(self.cfg.train.resume_path, self._legacy_name())
+        if path is None:
+            return state
+        state = self._restore(state, self.ckpt.restore(path))
+        print(f"[resume] restored checkpoint from {path}")
+        return state
+
+    # ------------------------------------------------------------------ fit
+    def fit(
+        self,
+        state: Optional[TrainState] = None,
+        epochs: Optional[int] = None,
+        log_dir: Optional[str] = None,
+        verbose: bool = True,
+    ) -> TrainState:
+        """A training run with the JAX trainer's loop: eval before every
+        ``eval_every``-th epoch (epoch 0 included) and after the last one,
+        best-NDCG checkpoints and early stop, ``last`` at its cadence (and
+        always at the end), periodic legacy-named saves, CSV/TensorBoard
+        logs."""
+        t_cfg = self.cfg.train
+        epochs = t_cfg.epochs if epochs is None else epochs
+        state = state or self.init_state()
+        if t_cfg.load_pretrained:
+            # weights only, from the legacy-named checkpoint; epoch 0 and a
+            # fresh optimizer state stay; a missing one is a warning
+            legacy = self._legacy_name()
+            legacy_path = os.path.join(t_cfg.checkpoint_dir, legacy)
+            path = (legacy_path if os.path.isdir(legacy_path)
+                    else self.ckpt.resolve_resume_path(None, legacy))
+            if path is not None:
+                state = self._restore(state, self.ckpt.restore(path), weights_only=True)
+                print(f"[load] restored pretrained weights from {path}")
+            else:
+                print(f"[load] WARNING: no pretrained checkpoint ({legacy})")
+        if t_cfg.resume:
+            state = self.maybe_resume(state)
+
+        train_csv = make_train_csv(t_cfg.checkpoint_dir)
+        valid_csv = make_valid_csv(t_cfg.checkpoint_dir, self.cfg.eval.topks)
+        # the model config beside the checkpoints, for serve export
+        with open(os.path.join(t_cfg.checkpoint_dir, "model_meta.json"), "w") as f:
+            json.dump(dataclasses.asdict(self.cfg.model), f)
+        tb = TensorboardWriter(log_dir if t_cfg.tensorboard else None, t_cfg.comment)
+        main_k = max(self.cfg.eval.topks)
+        last_eval_epoch = last_saved_epoch = -1
+        evals_since_best = 0
+
+        try:
+            while state.epoch < epochs:
+                # eval_every <= 0: no eval in the loop, the final one runs
+                if (self.evaluator is not None and t_cfg.eval_every > 0
+                        and state.epoch % t_cfg.eval_every == 0):
+                    last_eval_epoch = state.epoch
+                    state, improved = self._run_eval(state, valid_csv, tb, verbose, "eval")
+                    if improved:
+                        evals_since_best = 0
+                    else:
+                        evals_since_best += 1
+                        if t_cfg.early_stop_evals and evals_since_best >= t_cfg.early_stop_evals:
+                            if verbose:
+                                print(f"[early-stop] no ndcg@{main_k} improvement in "
+                                      f"{evals_since_best} evals (best {state.best_metric:.5f})")
+                            break
+
+                t0 = time.time()
+                state, loss = self.train_epoch(state)
+                dt = time.time() - t0
+                train_csv.append({"epoch": state.epoch, "time_sec": f"{dt:.3f}",
+                                  "train_loss": f"{loss:.6f}", "lr": self._logged_lr(state)})
+                tb.scalar("Train/loss", loss, state.epoch)
+                if verbose:
+                    print(f"[epoch {state.epoch}/{epochs}] loss={loss:.5f} ({dt:.2f}s)")
+                if t_cfg.save_last_every == 1 or state.epoch % max(1, t_cfg.save_last_every) == 0:
+                    self.save_last(state)
+                    last_saved_epoch = state.epoch
+                if t_cfg.save_every and state.epoch % t_cfg.save_every == 0:
+                    self.ckpt.save_periodic(self._ckpt_state(state), self._legacy_name())
+
+            # the in-loop eval runs before an epoch, so the state after the
+            # last epoch has not been evaluated
+            if self.evaluator is not None and last_eval_epoch != state.epoch:
+                state, _ = self._run_eval(state, valid_csv, tb, verbose, "final eval")
+        finally:
+            # leave a current 'last' behind (throttled cadence, early stop,
+            # an interrupt), unless the loop just wrote it
+            if t_cfg.checkpoint_dir and last_saved_epoch != state.epoch:
+                self.save_last(state)
+            tb.close()
+        return state
+
+    def _run_eval(self, state, valid_csv, tb, verbose, label="eval"):
+        """One eval, its CSV row and TensorBoard scalars, and a best-NDCG
+        checkpoint on improvement → (state, improved)."""
+        main_k = max(self.cfg.eval.topks)
+        t0 = time.time()
+        metrics = self.evaluate(state)
+        eval_sec = time.time() - t0
+        row = {"epoch": state.epoch, "time_sec": f"{eval_sec:.3f}",
+               "lr": self._logged_lr(state)}
+        row.update({k: f"{v:.6f}" for k, v in metrics.items()})
+        valid_csv.append(row)
+        tb.eval_metrics(metrics, self.cfg.eval.topks, state.epoch)
+        if verbose:
+            print(f"[{label} e{state.epoch}] "
+                  + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics.items())))
+        ndcg = metrics.get(f"ndcg@{main_k}", 0.0)
+        improved = ndcg > state.best_metric
+        if improved:
+            state = dataclasses.replace(state, best_metric=ndcg)
+            self.ckpt.save_best(self._ckpt_state(state), state.epoch, self.cfg.train.keep_topk)
+        return state, improved

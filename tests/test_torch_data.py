@@ -153,3 +153,34 @@ def test_model_config_matches_jax():
     # a model_meta.json written from the JAX config loads unchanged
     meta = dataclasses.asdict(jconfig.ModelConfig(num_layers=2, use_pop_gate=True))
     assert dataclasses.asdict(tconfig.ModelConfig(**meta)) == meta
+
+
+@pytest.mark.parametrize("preserve_order", [False, True])
+def test_dataset_writers_match_jax(tmp_path, preserve_order):
+    rng = np.random.default_rng(7)
+    users, items = rng.integers(0, 30, 200), rng.integers(0, 50, 200)
+    for pkg, name in ((jds, "jax.txt"), (tds, "port.txt")):
+        pkg.write_interaction_file(str(tmp_path / name), users, items, preserve_order)
+    assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
+    train = [(int(u) * 10 + 3, [int(i) * 7 for i in rng.integers(0, 40, rng.integers(1, 6))])
+             for u in rng.permutation(25)]
+    test = [(u, [its[0] + 1000]) for u, its in train[:9]]
+    sizes = [pkg.write_dataset_dir(str(tmp_path / p), train, test)
+             for pkg, p in ((jds, "jdir"), (tds, "tdir"))]
+    assert sizes[0] == sizes[1]
+    for f in ("train.txt", "test.txt", "user_list.txt", "item_list.txt"):
+        assert (tmp_path / "tdir" / f).read_text() == (tmp_path / "jdir" / f).read_text(), f
+    _assert_same_data(tds.load_dataset(str(tmp_path / "tdir")),
+                      jds.load_dataset(str(tmp_path / "jdir"), name="tdir"))
+
+
+def test_load_lastfm_matches_jax(tmp_path):
+    rng = np.random.default_rng(8)
+    rows = [f"{u}\t{i}\t{w}" for u, i, w in zip(rng.integers(1, 40, 300),
+                                                 rng.integers(1, 60, 300),
+                                                 rng.integers(1, 9, 300))]
+    (tmp_path / "data1.txt").write_text("\n".join(rows[:250] + rows[:5]) + "\n")  # duplicates
+    (tmp_path / "test1.txt").write_text("\n".join(rows[250:]) + "\n\n")
+    _assert_same_data(tds.load_lastfm(str(tmp_path)), jds.load_lastfm(str(tmp_path)))
+    empty = tds.load_lastfm(str(tmp_path / "missing"))
+    assert (empty.n_users, empty.m_items, empty.train_size) == (0, 0, 0)

@@ -119,7 +119,10 @@ def test_evaluator_checks_what_it_is_given():
     data = tsyn.clustered(30, 40, seed=0)
     graph = tadj.build_graph(data, 256)
     model = build_model(tcfg.ModelConfig(num_layers=1, embedding_dim=4), graph, device=CPU)
-    with pytest.raises(NotImplementedError, match="topk_method"):
-        Evaluator(data, model, tcfg.EvalConfig(topk_method="approx"), device=CPU)
+    for method in ("approx", "threshold"):  # both run; parity in test_torch_topk.py
+        got = Evaluator(data, model, tcfg.EvalConfig(topk_method=method), device=CPU).run()
+        assert set(got) == {"recall@20", "precision@20", "ndcg@20"}
+    with pytest.raises(ValueError, match="topk_method"):
+        Evaluator(data, model, tcfg.EvalConfig(topk_method="fast"), device=CPU)
     with pytest.raises(ValueError, match="the model is on cpu"):
         Evaluator(data, model, tcfg.EvalConfig(), device="meta")

@@ -43,7 +43,8 @@ def test_port_imports_nothing_of_jax():
                  "ops.ell_kernel", "ops.spmm", "ops.sampling", "ops.metrics", "models.lightgcn",
                  "data.adjacency", "train.fused_adam", "train.optim", "train.evaluator",
                  "train.trainer", "ops.hybrid", "ops.reorder", "ops.hashdrop", "ops.tiled",
-                 "bench"):
+                 "bench", "cli", "__main__", "utils.seeding", "data.i2i", "train.checkpoint",
+                 "train.logging", "ops.topk", "data.dataset"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"

@@ -113,11 +113,19 @@ def test_init_params_is_seeded_and_scaled():
     (dict(spmm_mode="segment"), NotImplementedError),
     (dict(spmm_mode="hybrid"), NotImplementedError),
     (dict(spmm_mode="csr"), ValueError),
-    (dict(use_item_item=True), NotImplementedError),
+    (dict(use_item_item=True), None),  # no i2i graph given: no smoothing, as in JAX
     (dict(model="ngcf"), NotImplementedError),
     (dict(model="nope"), ValueError),
 ])
 def test_unported_options_raise(change, err):
     graph = tadj.build_graph(tsyn.powerlaw(20, 30, seed=0), 256)
+    if err is None:
+        model = build_model(ModelConfig(embedding_dim=4, **change), graph, device=CPU)
+        plain = build_model(ModelConfig(embedding_dim=4), graph, device=CPU)
+        assert model.i2i is None
+        with torch.no_grad():
+            for a, b in zip(model.propagate(), plain.propagate()):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
     with pytest.raises(err):
         build_model(ModelConfig(embedding_dim=4, **change), graph, device=CPU)

@@ -136,8 +136,12 @@ def test_topk_helpers_match_jax(rng, tiny_data, pk):
     jvals, jids = jtopk.masked_topk(jnp.asarray(u), jnp.asarray(it), jnp.asarray(bits), 10)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(vals.numpy(), np.asarray(jvals), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttopk.topk_scores(raw, 5, method="approx")
+    # approx at m ≤ 128 is one lane tile: no fold, the exact top-k, as JAX's
+    for method in ("approx", "threshold"):
+        v, i = ttopk.topk_scores(raw, 5, method=method)
+        jv, ji = jtopk.topk_scores(jnp.asarray(u @ it.T), 5, method=method)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=ATOL)
 
 
 def test_resolve_bitplane_scoring_rejects_unknown_modes():
