@@ -10,10 +10,12 @@
    card. Masked scoring (K1/K2) with random bitsets at B = 1, 13, 256 and
    2048 (the eval batch), d = 40 and 64, the odd m = 40,981 in natural
    order and in the bit-plane layout at block_m = 64, 4096 and 8192, and
-   at m = 100. The ELL gather-reduce (K4) on every bucket of both sides of
-   the Gowalla-shaped stand-in, fp32 and bf16, with and without an edge
-   mask; on a side whose hub row of 70,000 slots crosses max_width (the
-   layout's extra_dst path) and on rows of exactly S, S + 1 and 2S real
+   at m = 100; and at NGCF's width d = 256. The ELL gather-reduce (K4) on
+   every bucket of both sides of the Gowalla-shaped stand-in, fp32 and
+   bf16, with and without an edge mask; on a side whose hub row of 140,000
+   slots crosses max_width twice (the layout adds its two overflow chunks
+   one chunk level after the other; two applies bitwise equal, the card
+   against the CPU) and on rows of exactly S, S + 1 and 2S real
    slots and one that is padding after slot 1 (S = the split length: rows
    longer go through the kernel's second pass); two calls on the same
    inputs must be bitwise equal; and at the TPU probe's shape against the
@@ -68,7 +70,29 @@
    threshold and approx on the final parameters (threshold = exact,
    approx's recall at least its target less 0.02, each method's eval
    seconds); and K4 on both i2i sides against its plain version.
-10. Times each kernel by its device time (the kernels' own time in
+10. Zoo phase, the graph family's other models and layouts at full width:
+   the segment layer (JAX's interface over the ELL layer, K4 on both
+   sides) forward and VJP on the card against the CPU (fp32 and bf16,
+   without and with an edge mask, two calls bitwise equal) and the ELL
+   layer's device time beside `torch.segment_reduce`'s; the hybrid layout at C = 8192
+   in fp32 and bf16 (build seconds, dense coverage, its layer forward and
+   VJP against the CPU's ELL layer without and with hash dropout, two
+   calls bitwise equal, K4 against its plain version on both residual
+   sides of both directions, device time of the layer, of each dense
+   product beside its bound and of each K4 residual side); K1 at d = 256
+   and K3 over NGCF's 14 leaves timed; each model and layout (MF, NGCF,
+   XSimGCL, UltraGCN `full` and `pool` with `ug_sift_pos`, LightGCN on
+   the hybrid and segment layouts) on the card against the CPU for 3
+   steps on a 1,500 × 2,000 graph at three seeds (losses, the first
+   step's gradients before Adam, the parameters after it; and a control
+   with K3's bias correction one step late, which must fail the
+   parameter check); then, counted, each through
+   `gsrs_tpu_torch.cli.main` for one whole epoch with an eval before and
+   after it, launching K1 once per eval batch, K3 once per leaf per step
+   and K4 on every side of its layout (none without one), and after it,
+   uncounted, 5 more steps under torch.profiler (wall and device µs a
+   step, busy share, the costliest device rows).
+11. Times each kernel by its device time (the kernels' own time in
    torch.profiler's device-side events over a window of launches, after a
    warm-up; CUDA events around the same calls are logged beside it where
    the two differ by more than 10%) beside its bound, its plain version
@@ -138,6 +162,45 @@ TILED_BF16_PARAM_SHARE = 1e-3
 CLI_DATASET, CLI_EPOCHS = "cli_data", 3
 RESUME_ATOL = 1e-6  # resumed vs uninterrupted parameters on the card
 APPROX_SLACK = 0.02  # approx's measured recall may fall this far under its target
+# the zoo phase: each model and layout of the graph family through the CLI for one epoch
+ZOO_RUNS = {
+    "mf": ["--model", "mf"],
+    "ngcf": ["--model", "ngcf"],
+    "xsimgcl": ["--model", "xsimgcl"],
+    "ultragcn_full": ["--model", "ultragcn", "--ug_neg_sharing", "full"],
+    "ultragcn_pool_sift": ["--model", "ultragcn", "--ug_neg_sharing", "pool", "--ug_sift_pos"],
+    "lgn_hybrid": ["--spmm", "hybrid", "--bf16", "--dropout", "1"],
+    "lgn_segment": ["--spmm", "segment", "--dropout", "1"],
+}
+ZOO_D = 256  # NGCF's scoring width, d·(K+1) at 3 layers of 64
+HYBRID_C = 8192  # the hybrid layout's default hub columns
+# bf16 hybrid layer against the fp32 result of the bf16-rounded inputs and weights: two
+# roundings forward (the product or the residual sum, then their sum) and two backward (the
+# hub cotangent or the residual, then their sum in the hub rows); a mask rounds w · mask and
+# the masked dense cell once more each
+HYBRID_BF16_ROUNDINGS = 2
+# the segment layer (the ELL layer, K4 on each side) rounds w · mask to bf16 and then its fp32
+# sum: two roundings, so a card and a CPU result differ by at most twice that
+SEGMENT_BF16_ROUNDINGS = 2
+# the zoo's card-vs-CPU steps: each configuration on a small graph at each seed
+ZOO_SMALL = dict(n_users=1500, m_items=2000, avg_degree=20)
+ZOO_SEEDS = (SEED, SEED + 1, SEED + 2)
+ZOO_CARD_VS_CPU = {
+    "mf": dict(model="mf"), "ngcf": dict(model="ngcf"), "xsimgcl": dict(model="xsimgcl"),
+    "ultragcn_full": dict(model="ultragcn", ug_neg_sharing="full"),
+    "ultragcn_pool_sift": dict(model="ultragcn", ug_neg_sharing="pool", ug_sift_pos=True),
+    "lgn_hybrid": dict(spmm_mode="hybrid", hybrid_cols=256),
+    "lgn_segment": dict(spmm_mode="segment"),
+}
+# the first step's gradients, before Adam: fp32 sums in another order, against the leaf's
+# largest gradient
+ZOO_GRAD_RTOL = 1e-5
+# the parameters after 3 Adam steps at lr 1e-3. Adam divides each element's update by that
+# element's own gradient RMS, so an element whose gradient is a small remainder of larger
+# terms (UltraGCN's tables start at N(0, 1e-4^2), its losses are sums) carries the sums'
+# rounding, scaled up by the leaf's largest gradient over its own, into its update. The
+# limit sits between the sound runs' readings and the control's (PERF.md)
+ZOO_PARAM_ATOL = 5e-5
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -319,6 +382,9 @@ def kernel_phase(dev: torch.device) -> dict:
     cases = [(B, d, m_main, bitplane, block_m) for B in (1, 13, BATCH, 2048) for d in (40, 64)
              for bitplane, block_m in ((False, 4096), (True, 64), (True, 4096), (True, 8192))]
     cases += [(BATCH, 64, 100, False, 4096), (BATCH, 64, 100, True, 4096)]
+    # NGCF's scoring width: d·(K+1) = 256 at 3 layers of 64
+    cases += [(B, ZOO_D, m_main, False, 4096) for B in (1, 13, BATCH, 2048)]
+    cases += [(BATCH, ZOO_D, m_main, True, 4096)]
     errs = {}
     for B, d, m, bitplane, block_m in cases:
         rows = -(-m // block_m) * block_m if bitplane else m
@@ -336,6 +402,8 @@ def kernel_phase(dev: torch.device) -> dict:
             f"{f' block_m={block_m:4d}' if bitplane else ''}: max abs err {err:.3e}")
         if (B, d, m, block_m) == (BATCH, 64, m_main, 4096):
             errs[name] = err
+        if (B, d, m, bitplane) == (2048, ZOO_D, m_main, False):
+            errs["masked_scores_d256"] = err
     return errs
 
 
@@ -574,15 +642,17 @@ def ell_variants(table, x, mask, what: str) -> float:
 
 
 def split_row_checks(dev) -> None:
-    """K4 where the work list splits rows: a hub row of 70,000 slots that
-    also crosses max_width (65,536: the layout's extra_dst path), and rows
-    of exactly S, S + 1 and 2S real slots beside one that is padding after
-    slot 1 (S = SPLIT_SLOTS)."""
+    """K4 where the work list splits rows: a hub row of 140,000 slots that
+    crosses max_width (65,536) twice, so the layout adds two overflow
+    chunks into it, one chunk level after the other (its extra_levels),
+    and rows of exactly S, S + 1 and 2S real slots beside one that is
+    padding after slot 1 (S = SPLIT_SLOTS). The hub side's apply on the
+    card is held against the CPU and must repeat bit for bit."""
     from gsrs_tpu_torch.data.adjacency import normalized_edge_weights
     from gsrs_tpu_torch.ops.ell import _apply_side, build_ell_graph
     from gsrs_tpu_torch.ops.ell_kernel import SPLIT_SLOTS, BucketTable
 
-    n, m = 70_000, 40
+    n, m = 140_000, 40
     rng = np.random.default_rng(SEED)
     pairs = np.unique(np.stack([np.concatenate([np.arange(n), rng.integers(0, n, 20_000)]),
                                 np.concatenate([np.zeros(n, np.int64),
@@ -591,20 +661,26 @@ def split_row_checks(dev) -> None:
     w = normalized_edge_weights(users, items, np.bincount(users, minlength=n),
                                 np.bincount(items, minlength=m))
     graph = build_ell_graph(users.astype(np.int32), items.astype(np.int32), w, n, m)
-    check(graph.by_item.extra_dst is not None, "the hub row did not cross max_width")
+    levels = len(graph.by_item.extra_levels)
+    check(levels >= 2, f"the hub row has {levels} overflow chunk levels, not 2")
     side = graph.to(dev).by_item
     g = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(n, 64, device=dev, generator=g) / 4
     mask = (torch.rand(users.size, device=dev, generator=g) < 0.6).float() / 0.6
     n_split = sum(work.splits.shape[0] for _, work in side.table._tables)
-    check(n_split >= 2, f"the hub side split {n_split} rows")
+    check(n_split >= 3, f"the hub side split {n_split} rows")
     ell_variants(side.table, x, mask, f"ell_gather_reduce hub side ({n_split} split rows)")
+    for dtype in (torch.float32, torch.bfloat16):
+        first, second = (_apply_side(side, x.to(dtype), mask) for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), f"hub side {dtype}: two applies differ")
     got = _apply_side(side, x, mask).cpu()
     want = _apply_side(graph.by_item, x.cpu(), mask.cpu())
     err = float((got - want).abs().max())
-    check(err <= ELL_ATOL, f"hub side through extra_dst: card vs CPU {err}")
-    log(f"[kernel] ell hub side through extra_dst (fp32, masked): card vs CPU max abs err "
-        f"{err:.3e}")
+    check(err <= ELL_ATOL, f"hub side through its overflow chunks: card vs CPU {err}")
+    log(f"[kernel] ell hub row of {int(np.bincount(items)[0])} slots, {levels + 1} chunks added "
+        f"in order (fp32, masked): card vs CPU max abs err {err:.3e}; two applies bitwise equal "
+        "(fp32 and bf16)")
 
     S, width = SPLIT_SLOTS, 2 * SPLIT_SLOTS + 64
     lengths = (S, S + 1, 2 * S, 1)
@@ -1669,6 +1745,539 @@ def cli_phase(dev, data, out_dir: str) -> dict:
                 topk_metrics=methods["metrics"])
 
 
+# ---------------------------------------------------------------- zoo phase
+
+
+def bf16_limit(mag: torch.Tensor, roundings: int) -> torch.Tensor:
+    """The error of ``roundings`` roundings to bf16 (2^-8 relative each) of
+    values bounded by ``mag``, plus the fp32 order difference near 0."""
+    return ((1 + 2.0**-8) ** roundings - 1) * mag + ELL_BF16_ATOL
+
+
+def check_repeats(first, second, what: str) -> None:
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)), f"{what}: two calls differ")
+
+
+def segment_checks(dev, data, ell) -> dict:
+    """The segment layer (`ops.spmm.propagate_layer`: JAX's sort-order
+    masks back to canonical order, then the ELL layer, K4 on both sides)
+    forward and VJP on the card against the CPU in fp32 (within ELL_ATOL)
+    and bf16 (within twice SEGMENT_BF16_ROUNDINGS of the fp32
+    magnitudes), without and with an edge mask, two calls on the card
+    bitwise equal; `torch.segment_reduce` (the library's segment sum over
+    the sorted edge arrays, JAX's `jax.ops.segment_sum`) equal to it in
+    fp32 within ELL_ATOL; then the device time of a layer of each →
+    {check: max error, times}."""
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.ops.ell import ell_propagate_layer
+    from gsrs_tpu_torch.ops.spmm import make_edge_dropout_masks, propagate_layer
+
+    graph = build_graph(data)
+    ell_dev = ell.to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    arrays = [torch.randn(n, 64, device=dev, generator=g)
+              for n in (data.n_users, data.m_items, data.n_users, data.m_items)]
+
+    def layer(layout, *args):
+        return propagate_layer(graph, *args, ell=layout)
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for masked in (False, True):
+            masks = (make_edge_dropout_masks(torch.Generator().manual_seed(SEED), graph, 0.6,
+                                             dtype) if masked else None)
+            dmasks = None if masks is None else tuple(m.to(dev) for m in masks)
+            ins = [a.to(dtype) for a in arrays]
+            card = layer_and_vjp(layer, ell_dev, *ins, dmasks)
+            again = layer_and_vjp(layer, ell_dev, *ins, dmasks)
+            label = f"segment layer {str(dtype)[6:]} {'masked' if masked else 'unmasked'}"
+            check_repeats(card, again, label)
+            cpu = layer_and_vjp(layer, ell, *(a.cpu() for a in ins), masks)
+            if dtype == torch.float32:
+                err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
+                check(err <= ELL_ATOL, f"{label}: card vs CPU {err} > {ELL_ATOL}")
+            else:
+                fm = None if masks is None else tuple(m.float() for m in masks)
+                mag = layer_and_vjp(layer, ell, *(a.cpu().float().abs() for a in ins), fm)
+                err = max(float(((a.cpu().float() - b.float()).abs()
+                                 / (2 * bf16_limit(m, SEGMENT_BF16_ROUNDINGS))).max())
+                          for a, b, m in zip(card, cpu, mag))
+                check(err <= 1.0, f"{label}: card vs CPU {err}x the bf16 limit")
+            out[label] = err
+            log(f"[zoo] {label}, forward and VJP: card vs CPU "
+                f"{'max abs err' if dtype == torch.float32 else 'err/limit'} {err:.3e}; two calls "
+                "bitwise equal")
+    edges = {k: torch.from_numpy(getattr(graph, k)).to(dev) for k in (
+        "edge_u_by_u", "edge_i_by_u", "edge_w_by_u", "edge_i_by_i", "edge_u_by_i", "edge_w_by_i")}
+    edges["runs_by_u"] = torch.bincount(edges["edge_u_by_u"].long(), minlength=graph.n_users)
+    edges["runs_by_i"] = torch.bincount(edges["edge_i_by_i"].long(), minlength=graph.m_items)
+    times = {}
+    with torch.no_grad():
+        lib = segment_reduce_layer(edges, *arrays[:2])
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(lib, layer(ell_dev, *arrays[:2])))
+        check(err <= ELL_ATOL, f"torch.segment_reduce against the segment layer: {err}")
+        for dtype in (torch.float32, torch.bfloat16):
+            u, x = (a.to(dtype) for a in arrays[:2])
+            for name, fn, g in (("ell", ell_propagate_layer, ell_dev),
+                                ("torch.segment_reduce", segment_reduce_layer, edges)):
+                times[f"{name} {str(dtype)[6:]}"] = kernel_ms(
+                    lambda: fn(g, u, x), 20, f"{name} layer {dtype}")["ms"]
+    log("[time] one layer forward (both sides), device time: " + ", ".join(
+        f"{k} {v * 1e3:.1f} us" for k, v in times.items()))
+    return dict(errors=out, layer_ms=times, segment_reduce_err=err)
+
+
+def segment_reduce_layer(edges: dict, user_emb, item_emb):
+    """The segment layer's two sums by `torch.segment_reduce` over the
+    graph's sorted edge arrays (``edges``: the `BipartiteGraph`'s arrays
+    on the card and the run length of each user and item), the library
+    counterpart of JAX's `jax.ops.segment_sum`: products in x's dtype,
+    summed in fp32, rounded once. Timed beside the port's K4 sides."""
+    out = []
+    for lengths, src, w, x in (
+            (edges["runs_by_u"], edges["edge_i_by_u"], edges["edge_w_by_u"], item_emb),
+            (edges["runs_by_i"], edges["edge_u_by_i"], edges["edge_w_by_i"], user_emb)):
+        gathered = x.index_select(0, src) * w.to(x.dtype)[:, None]
+        out.append(torch.segment_reduce(gathered.float(), "sum", lengths=lengths,
+                                        unsafe=True).to(x.dtype))
+    return out
+
+
+def hybrid_checks(dev, data, ell) -> dict:
+    """The hybrid layout at C = HYBRID_C in fp32 and bf16: build seconds
+    and dense coverage; its layer forward and VJP on the card against the
+    CPU's ELL layer (the same product, and the same edges kept: the hash
+    mask in canonical order), fp32 within ELL_ATOL and bf16 within the
+    HYBRID_BF16_ROUNDINGS limit of the fp32 result of the rounded inputs
+    and weights, without and with hash dropout, two calls bitwise equal;
+    K4 against its plain version on both residual sides of both
+    directions; device time of the layer, of each dense product beside its
+    bound and of each K4 residual side → results."""
+    from gsrs_tpu_torch.ops.ell import _apply_side, ell_propagate_layer
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+    from gsrs_tpu_torch.ops.hashdrop import canonical_hash_mask
+    from gsrs_tpu_torch.ops.hybrid import (
+        hybrid_from_interactions, hybrid_masks, hybrid_propagate_layer,
+    )
+    from gsrs_tpu_torch.ops.tiled import _hub_product
+
+    E = data.train_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    arrays = [torch.randn(n, 64, device=dev, generator=g)
+              for n in (data.n_users, data.m_items, data.n_users, data.m_items)]
+    users, items = torch.from_numpy(data.train_users), torch.from_numpy(data.train_items)
+    cpu_mask = canonical_hash_mask(users, items, TILED_DROP)
+    ell_r = rounded_ell(ell)
+    out = dict(errors={}, build_s={}, layer_ms={}, dense={}, k4_sides={})
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        t0 = time.perf_counter()
+        hg = hybrid_from_interactions(data, cols=HYBRID_C, dtype=dtype)
+        out["build_s"][dt] = time.perf_counter() - t0
+        if dtype == torch.float32:
+            out["coverage"] = {k: 1.0 - getattr(hg, k).res_dst.numel() / E
+                               for k in ("user_from_item", "item_from_user")}
+            log(f"[zoo] hybrid C={HYBRID_C} on {E} edges: built in {out['build_s'][dt]:.2f} s "
+                f"(host); dense coverage user_from_item {out['coverage']['user_from_item']:.4f}, "
+                f"item_from_user {out['coverage']['item_from_user']:.4f}")
+        hgd = hg.to(dev)
+        del hg
+        ins = [a.to(dtype) for a in arrays]
+        for masked in (False, True):
+            drop = TILED_DROP if masked else None
+            label = f"hybrid layer {dt} {'hash-masked' if masked else 'unmasked'}"
+            card = layer_and_vjp(hybrid_propagate_layer, hgd, *ins, hybrid_masks(hgd, drop))
+            again = layer_and_vjp(hybrid_propagate_layer, hgd, *ins, hybrid_masks(hgd, drop))
+            check_repeats(card, again, label)
+            mask = cpu_mask if masked else None
+            if dtype == torch.float32:
+                ref = layer_and_vjp(ell_propagate_layer, ell, *(a.cpu() for a in ins), mask)
+                err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, ref))
+                check(err <= ELL_ATOL, f"{label}: card vs the CPU's ELL layer {err}")
+            else:
+                f32 = [a.cpu().float() for a in ins]
+                ref = layer_and_vjp(ell_propagate_layer, ell_r, *f32, mask)
+                mag = layer_and_vjp(ell_propagate_layer, ell_r, *(a.abs() for a in f32), mask)
+                k = HYBRID_BF16_ROUNDINGS + 2 * int(masked)
+                err = max(float(((a.cpu().float() - b).abs() / bf16_limit(m, k)).max())
+                          for a, b, m in zip(card, ref, mag))
+                check(err <= 1.0, f"{label}: {err}x its rounding limit")
+                check(all(a.dtype == dtype for a in card), f"{label}: not bf16")
+            out["errors"][label] = err
+            log(f"[zoo] {label}, forward and VJP: against the CPU's ELL layer "
+                f"{'max abs err' if dtype == torch.float32 else 'err/limit'} {err:.3e}; two calls "
+                "bitwise equal")
+        masks = hybrid_masks(hgd, TILED_DROP)
+        with torch.no_grad():
+            u, x = ins[:2]
+            out["layer_ms"][dt] = kernel_ms(lambda: hybrid_propagate_layer(hgd, u, x), 20,
+                                            f"hybrid layer {dt}")["ms"]
+            out["layer_ms"][f"{dt} hash-masked"] = kernel_ms(
+                lambda: hybrid_propagate_layer(hgd, u, x, masks), 20,
+                f"hybrid layer {dt} masked")["ms"]
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+            for name, direction, x_src, x_dst in (
+                    ("user_from_item", hgd.user_from_item, ins[1], ins[0]),
+                    ("item_from_user", hgd.item_from_user, ins[0], ins[1])):
+                dense = direction.dense
+                n_dst, C = dense.shape
+                b_bytes = dense.numel() * dense.element_size() / PEAK_BYTES_PER_S
+                b_ops = 2 * n_dst * C * x_src.shape[1] / peak
+                hub = x_src.index_select(0, direction.top_src)
+                for kind, a, b in (("forward", dense[None], hub[None]),
+                                   ("transpose", dense.t()[None], x_dst[None])):
+                    t = kernel_ms(lambda: _hub_product(a, b), 20, f"hybrid {name} {kind} {dt}")
+                    out["dense"][f"{name} {kind} {dt}"] = dict(
+                        ms=t["ms"], events_ms=t["events_ms"], bound_ms=1e3 * max(b_bytes, b_ops),
+                        bound_by="bytes" if b_bytes >= b_ops else "operations",
+                        shape=[n_dst, C, int(x_src.shape[1])])
+                if dtype != torch.float32:
+                    continue
+                m = masks[0 if name == "user_from_item" else 1].residual
+                for side_name, side, xs in (("residual fwd", direction.residual.by_user, x_src),
+                                            ("residual bwd", direction.residual.by_item, x_dst)):
+                    what = f"ell_gather_reduce hybrid {name} {side_name}"
+                    out["errors"][what] = ell_variants(side.table, xs, m, what)
+                    nnz = sum(int((bk.w != 0).sum()) for bk in side.buckets)
+                    io = xs.element_size() * (xs.numel() + side.table.n_rows * xs.shape[1])
+                    b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * xs.shape[1])
+                    o = xs.new_empty(side.table.n_rows + 1, xs.shape[1])
+                    k4 = kernel_ms(lambda: gather_reduce(side.table, xs, out=o), 100, what)
+                    apply = kernel_ms(lambda: _apply_side(side, xs), 100, f"{what} apply")
+                    out["k4_sides"][f"{name} {side_name}"] = dict(
+                        ms=k4["ms"], events_ms=k4["events_ms"], apply_ms=apply["ms"],
+                        bound_ms=b_ms, bound_by=b_by, edges=nnz, rows=side.n_rows,
+                        buckets=len(side.buckets))
+        del hgd, masks
+    for k, v in out["dense"].items():
+        log(f"[time] hybrid dense product {k} {v['shape']}: {v['ms'] * 1e3:.1f} us/call, bound "
+            f"{v['bound_ms'] * 1e3:.1f} us ({v['bound_by']})")
+    for k, v in out["k4_sides"].items():
+        log(f"[time] hybrid K4 {k} (fp32): {v['ms'] * 1e3:.1f} us/call ({v['buckets']} buckets, "
+            f"{v['edges']} edges, {v['rows']} rows), bound {v['bound_ms'] * 1e3:.2f} us "
+            f"({v['bound_by']}); the side's whole apply {v['apply_ms'] * 1e3:.1f} us")
+    log("[time] hybrid layer forward (both directions): " + ", ".join(
+        f"{k} {v * 1e3:.1f} us" for k, v in out["layer_ms"].items()))
+    return out
+
+
+def layout_launches(model) -> dict:
+    """K4 calls on each side of the model's layout (none for MF and
+    UltraGCN)."""
+    from gsrs_tpu_torch.ops.ell import EllGraph
+    from gsrs_tpu_torch.ops.hybrid import HybridGraph
+
+    ell = model.ell
+    if isinstance(ell, EllGraph):  # the ELL and the segment layouts
+        return {"user": ell.by_user.table.launches, "item": ell.by_item.table.launches}
+    if isinstance(ell, HybridGraph):
+        return {f"{name} {kind}": getattr(getattr(ell, name).residual, side).table.launches
+                for name in ("user_from_item", "item_from_user")
+                for kind, side in (("fwd", "by_user"), ("bwd", "by_item"))}
+    return {}
+
+
+def zoo_cli_runs(root: str) -> dict:
+    """Each ZOO_RUNS entry through `gsrs_tpu_torch.cli.main` for one
+    epoch (batch 2048, an eval before and after it, the fused Adam
+    kernel), counted: K1 once per eval batch, K3 once per leaf per step,
+    K4 on every side of an ELL, hybrid or segment layout at least once per
+    layer per step each way, and on no side without one; each run's
+    checkpoint directory starts empty → {run: results}."""
+    import shutil
+
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.data.dataset import load_dataset
+    from gsrs_tpu_torch.models.ultragcn import build_ii_constraint
+
+    data_dir = os.path.join(root, CLI_DATASET)
+    t0 = time.perf_counter()
+    graph = build_graph(load_dataset(data_dir))
+    build_ii_constraint(graph, 10, cache_dir=data_dir)  # the runs read this cache
+    ii_s = time.perf_counter() - t0
+    log(f"[zoo] UltraGCN's item-item top-10 built and cached in {ii_s:.2f} s (host, with the "
+        "dataset's load)")
+    runs = {}
+    for name, extra in ZOO_RUNS.items():
+        ckpt = os.path.join(root, f"zoo_{name}")
+        shutil.rmtree(ckpt, ignore_errors=True)  # the CSV loggers append to what is there
+        argv = ["--data_root", root, "--dataset", CLI_DATASET, "--epochs", "1", "--eval_every",
+                "1", "--fused_adam", "pallas", "--tensorboard", "0", "--checkpoint_dir",
+                ckpt] + extra
+        tr, state = cli_run_counted(argv)
+        tr_rows = csv_rows(os.path.join(ckpt, "train_epoch_metrics.csv"))
+        va_rows = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))
+        launches, wall = tr.zoo_launches, tr.zoo_wall
+        model, steps = tr.model, tr.steps_per_epoch
+        check(state.epoch == 1, f"{name}: ended at epoch {state.epoch}")
+        check([r["epoch"] for r in va_rows] == ["0", "1"], f"{name}: valid CSV {va_rows}")
+        loss = float(tr_rows[0]["train_loss"])
+        check(np.isfinite(loss), f"{name}: loss {loss}")
+        metrics = {k: float(v) for k, v in va_rows[-1].items() if "@" in k}
+        check(all(np.isfinite(v) for v in metrics.values()), f"{name}: metrics {metrics}")
+        n_leaves = len(list(model.parameters()))
+        n_batches = tr.evaluator._users.shape[0]
+        check(launches["masked_scores"] == 2 * n_batches,
+              f"{name}: masked_scores launched {launches['masked_scores']} times for 2 evals of "
+              f"{n_batches} batches")
+        check(launches["fused_adam"] == n_leaves * steps,
+              f"{name}: fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves x "
+              f"{steps} steps")
+        sides = launches["sides"]
+        layers = model.cfg.num_layers
+        for side, n in sides.items():
+            check(n >= layers * steps, f"{name}: K4 on the {side} side {n} times in {steps} steps")
+        if not sides:
+            check(launches["ell_gather_reduce"] == 0,
+                  f"{name}: K4 launched {launches['ell_gather_reduce']} times without a layout")
+        width = int(model.final_embeddings()[1].shape[1])
+        runs[name] = dict(
+            epoch_s=float(tr_rows[0]["time_sec"]), steps=steps, batch=tr.cfg.train.batch_size,
+            eval_s=[float(r["time_sec"]) for r in va_rows], loss=loss, metrics=metrics,
+            run_s=wall, launches={k: v for k, v in launches.items() if k != "sides"},
+            k4_sides=sides, leaves=n_leaves, width=width,
+            layout=type(model.ell).__name__ if model.ell is not None else None,
+            profile=profile_steps(tr, state, name))
+        log(f"[zoo] {name}: {runs[name]['epoch_s']:.3f} s/epoch ({steps} steps of "
+            f"{tr.cfg.train.batch_size}), evals {runs[name]['eval_s']} s (the second warm), run "
+            f"{wall:.2f} s; scoring width {width}; {n_leaves} leaves; loss {loss:.5f}; "
+            f"{metrics}; launches {launches}")
+        del tr, state, model
+    return dict(runs=runs, ii_build_s=ii_s)
+
+
+def profile_steps(tr, state, what: str, steps: int = 5) -> dict:
+    """``steps`` more train steps of a zoo run's trainer at its batch under
+    torch.profiler, after one warm step (outside the counted run): wall
+    and device µs a step, device events a step, the device's busy share
+    and the four costliest device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsrs_tpu_torch.ops.sampling import sample_epoch
+
+    B = tr.cfg.train.batch_size
+    g = torch.Generator(device=tr.device).manual_seed(SEED + 11)
+    batches = sample_epoch(g, tr.sampler_state, (steps + 1) * B, B,
+                           by_edge=getattr(tr.model, "samples_pairs_by_edge", False))
+    drop = torch.Generator(device=tr.device).manual_seed(SEED + 12)
+    state, _ = tr.run_steps(state, *(b[:1] for b in batches), dropout_generator=drop)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_steps(state, *(b[1:] for b in batches), dropout_generator=drop)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0) / steps
+    rows = device_rows(prof)
+    device_us = sum(t for _, t, _ in rows) / steps
+    top = [[key[:70], t / steps, n / steps] for key, t, n in sorted(rows, key=lambda r: -r[1])[:4]]
+    busy = device_us / wall_us if device_us else None
+    kernels = sum(n for _, _, n in rows) / steps
+    log(f"[profile] {what} step: {wall_us:.1f} us wall under the profiler, {device_us:.1f} us "
+        f"device in {kernels:.0f} kernels and copies (busy share "
+        f"{busy if busy is None else round(busy, 3)}); top: "
+        + "; ".join(f"{k} {t:.1f} us x{n:.0f}" for k, t, n in top))
+    return dict(wall_us=wall_us, device_us=device_us, kernels=kernels, busy=busy, top=top)
+
+
+def cli_run_counted(argv):
+    """`gsrs_tpu_torch.cli.main` with every launch count zeroed just
+    before and read just after; the counts and seconds ride on the
+    returned trainer."""
+    from gsrs_tpu_torch import cli
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, state = cli.main(argv)
+    torch.cuda.synchronize()
+    trainer.zoo_wall = time.perf_counter() - t0
+    trainer.zoo_launches = dict(read_counts(), sides=layout_launches(trainer.model))
+    return trainer, state
+
+
+def zoo_config(name: str, seed: int):
+    """The ExperimentConfig of ZOO_CARD_VS_CPU[name] at seed ``seed``."""
+    from gsrs_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
+
+    return ExperimentConfig(
+        model=ModelConfig(num_layers=3, embedding_dim=64, **ZOO_CARD_VS_CPU[name]),
+        train=TrainConfig(batch_size=512, fused_adam="pallas", seed=seed))
+
+
+def zoo_steps(cfg, data, graph, batches, device, wrong_bias_correction: bool = False):
+    """3 `run_steps` of a seeded model of ``cfg`` on ``device`` with the
+    host step generator → (losses, parameters, each step's gradients as
+    the optimizer read them, all on the CPU). ``wrong_bias_correction``:
+    the control, Adam's first-moment correction taken one step late."""
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.train.trainer import Trainer
+
+    seed = cfg.train.seed
+    model = build_model(cfg.model, graph, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    tr = Trainer(cfg, data, graph, model, run_eval=False, device=device)
+    opt, grads = tr.optimizer, []
+    step, scalars = opt.step, opt.scalars
+
+    def recording_step(params, state):
+        grads.append({k: p.grad.detach().cpu().clone() for k, p in params.items()})
+        return step(params, state)
+
+    opt.step = recording_step
+    if wrong_bias_correction:
+        opt.scalars = lambda count: (scalars(count)[0], scalars(count + 1)[1], scalars(count)[2])
+    state, losses = tr.run_steps(tr.init_state(), *batches,
+                                 dropout_generator=torch.Generator().manual_seed(seed))
+    return losses.cpu(), {k: v.detach().cpu() for k, v in state.params.items()}, grads
+
+
+def zoo_card_vs_cpu(dev) -> dict:
+    """Each ZOO_CARD_VS_CPU configuration (fp32, no edge dropout, the
+    hybrid layout at C = 256) on the card and on the CPU takes the same 3
+    triplet batches through run_steps with the same host step generator
+    (XSimGCL's noise and UltraGCN's negatives are drawn on the host), at
+    each of ZOO_SEEDS. Checked: every loss within TRAIN_ATOL of its size;
+    the first step's gradients, before any Adam step, within
+    ZOO_GRAD_RTOL of each leaf's largest; the parameters after 3 steps
+    within ZOO_PARAM_ATOL. The control, UltraGCN pool + sift with K3's
+    bias correction one step late on the card, must break that limit →
+    {run: readings}."""
+    from gsrs_tpu_torch.data import synthetic
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.ops.sampling import make_sampler_state, sample_epoch
+
+    out = {}
+    for seed in ZOO_SEEDS:
+        data = synthetic.powerlaw(ZOO_SMALL["n_users"], ZOO_SMALL["m_items"],
+                                  avg_degree=ZOO_SMALL["avg_degree"], seed=seed, holdout_frac=0.2)
+        graph = build_graph(data)
+        batches = sample_epoch(torch.Generator().manual_seed(seed),
+                               make_sampler_state(data, "cpu"), 3 * 512, 512)
+        for name in ZOO_CARD_VS_CPU:
+            cfg = zoo_config(name, seed)
+            l_card, p_card, g_card = zoo_steps(cfg, data, graph, batches, dev)
+            l_cpu, p_cpu, g_cpu = zoo_steps(cfg, data, graph, batches, torch.device("cpu"))
+            loss_err = float(((l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1.0)).max())
+            grad_err = max(float((g_card[0][k] - g_cpu[0][k]).abs().max()
+                                 / g_cpu[0][k].abs().max().clamp(min=1e-30)) for k in p_cpu)
+            diffs = {k: (p_card[k] - p_cpu[k]).abs() for k in p_cpu}
+            leaf = max(diffs, key=lambda k: float(diffs[k].max()))
+            param_err = float(diffs[leaf].max())
+            at = int(diffs[leaf].argmax())
+            history = [float(g[leaf].flatten()[at]) for g in g_cpu]
+            row_max = [float(g[leaf].abs().max()) for g in g_cpu]
+            check(loss_err <= TRAIN_ATOL, f"{name} seed {seed}: card vs CPU losses differ by "
+                  f"{loss_err} of their size")
+            check(grad_err <= ZOO_GRAD_RTOL, f"{name} seed {seed}: card vs CPU first gradients "
+                  f"differ by {grad_err} of the leaf's largest")
+            check(param_err <= ZOO_PARAM_ATOL, f"{name} seed {seed}: card vs CPU parameters "
+                  f"differ by {param_err}")
+            out[f"{name} seed {seed}"] = dict(loss=loss_err, grad=grad_err, params=param_err,
+                                             leaf=leaf, grads_there=history,
+                                             leaf_max_grads=row_max)
+            log(f"[zoo] {name} seed {seed}: card vs CPU, 3 steps at batch 512 on {data.n_users} x "
+                f"{data.m_items}: max loss diff {loss_err:.2e} of its size; first gradients "
+                f"{grad_err:.2e} of the leaf's largest (limit {ZOO_GRAD_RTOL}); parameters "
+                f"{param_err:.2e} (limit {ZOO_PARAM_ATOL}), at {leaf}[{at}] whose CPU gradients "
+                f"were {', '.join(f'{g:.3e}' for g in history)} (the leaf's largest "
+                f"{', '.join(f'{g:.3e}' for g in row_max)})")
+        if seed == SEED:
+            cfg = zoo_config("ultragcn_pool_sift", seed)
+            _, p_bad, _ = zoo_steps(cfg, data, graph, batches, dev, wrong_bias_correction=True)
+            _, p_cpu, _ = zoo_steps(cfg, data, graph, batches, torch.device("cpu"))
+            control = max(float((p_bad[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+            check(control > ZOO_PARAM_ATOL, f"the control (K3's bias correction one step late) "
+                  f"passed the parameter check: {control}")
+            out["control ultragcn_pool_sift"] = dict(params=control)
+            log(f"[zoo] control, ultragcn_pool_sift with K3's bias correction one step late on "
+                f"the card: parameters differ from the CPU's by {control:.2e} (limit "
+                f"{ZOO_PARAM_ATOL})")
+    return out
+
+
+def time_ngcf_adam(dev) -> dict:
+    """K3 over an NGCF step's leaves at full width (the two tables and 4
+    small leaves a layer, 14 in all) by device time, from copies cycling
+    through more than the L2, beside the bound of the step's bytes and the
+    library's fused Adam over the same leaves."""
+    from gsrs_tpu_torch.train.fused_adam import FusedAdam, fused_adam_
+
+    n, m, d, K = GOWALLA_SHAPE["n_users"], GOWALLA_SHAPE["m_items"], 64, 3
+    shapes = [(n, d), (m, d)] + [s for _ in range(K) for s in ((d, d), (d, d), (d,), (d,))]
+    lr, c1, c2 = FusedAdam(schedule=lambda c: 1e-3, backend="pallas").scalars(10)
+    nbytes = 4 * 4 * sum(int(np.prod(s)) for s in shapes)
+
+    def leaves():
+        return [tuple(torch.randn(s, device=dev) * 1e-3 for _ in range(4)) for s in shapes]
+
+    sets = cold_copies(leaves, nbytes)
+
+    def step():
+        for p, mu, nu, g in next(sets):
+            fused_adam_(p, mu, nu, g, lr, c1, c2, 0.9, 0.999, 1e-8)
+
+    def library():
+        params = [torch.nn.Parameter(torch.randn(s, device=dev)) for s in shapes]
+        for q in params:
+            q.grad = torch.randn_like(q) * 1e-3
+        return torch.optim.Adam(params, lr=1e-3, fused=True)
+
+    libs = cold_copies(library, nbytes)
+    t = kernel_ms(step, 50, "fused_adam NGCF step")
+    tl = kernel_ms(lambda: next(libs).step(), 50, "torch.optim.Adam(fused=True) NGCF step")
+    small = [s for s in shapes if s != (n, d) and s != (m, d)]
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    out = dict(ms=t["ms"], events_ms=t["events_ms"], library_ms=tl["ms"],
+               bound_ms=roofline(28 * n_el, 12 * n_el)[0], leaves=len(shapes),
+               small_leaves=[list(s) for s in small])
+    log(f"[time] fused_adam over NGCF's {len(shapes)} leaves a step: {out['ms'] * 1e3:.1f} us "
+        f"device (CUDA events {out['events_ms'] * 1e3:.1f} us), bound "
+        f"{out['bound_ms'] * 1e3:.1f} us (bytes), torch.optim.Adam(fused=True) "
+        f"{out['library_ms'] * 1e3:.1f} us")
+    return out
+
+
+def time_k1_d256(dev) -> dict:
+    """K1 at NGCF's eval shape (B = 2048, d = 256, m = 40,981) by device
+    time beside its bound, its plain version and `torch.matmul`."""
+    from gsrs_tpu_torch.ops.scoring import masked_scores, masked_scores_reference
+
+    B, m = 2048, GOWALLA_SHAPE["m_items"]
+    W = -(-m // 32)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    u = torch.randn(B, ZOO_D, device=dev, generator=g)
+    it = torch.randn(m, ZOO_D, device=dev, generator=g)
+    bits = torch.randint(-2**31, 2**31, (B, W), device=dev, generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    b_ms, b_by = bound(B, ZOO_D, m, W)
+    t = {k: kernel_ms(fn, reps, f"masked_scores d=256 {k}")["ms"] for k, fn, reps in (
+        ("ms", lambda: masked_scores(u, it, bits), 50),
+        ("plain_ms", lambda: masked_scores_reference(u, it, bits), 10),
+        ("library_ms", lambda: torch.matmul(u, it.T), 50))}
+    log(f"[time] masked_scores B=2048 d=256 m={m}: {t['ms'] * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.1f} us ({b_by}), plain {t['plain_ms'] * 1e3:.1f} us, torch.matmul "
+        f"{t['library_ms'] * 1e3:.1f} us")
+    return dict(t, bound_ms=b_ms, bound_by=b_by, shape=[B, ZOO_D, m])
+
+
+def zoo_phase(dev, data, ell, out_dir: str) -> dict:
+    """The graph zoo on the stand-in at full width: the segment and hybrid
+    layers' checks and times, each ZOO_RUNS configuration through the CLI
+    (counted), and each on the card against the CPU on a small graph."""
+    seg = segment_checks(dev, data, ell)
+    hyb = hybrid_checks(dev, data, ell)
+    k1 = time_k1_d256(dev)
+    adam = time_ngcf_adam(dev)
+    vs_cpu = zoo_card_vs_cpu(dev)
+    cli_runs = zoo_cli_runs(out_dir)
+    launches = {k: sum(r["launches"][k] for r in cli_runs["runs"].values())
+                for k in ("masked_scores", "ell_gather_reduce", "fused_adam")}
+    return dict(segment=seg, hybrid=hyb, k1_d256=k1, ngcf_adam=adam, card_vs_cpu=vs_cpu,
+                launches=launches, **cli_runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1712,16 +2321,20 @@ def main() -> int:
     drv = phase("drive", drive_phase, dev)
     tiled = phase("tiled", tiled_phase, dev, data)
     cli = phase("cli", cli_phase, dev, data, out_dir)
+    zoo = phase("zoo", zoo_phase, dev, data, train["ell"], out_dir)
     times = phase("time_training", time_training, dev, train)
 
     kernels = serve["kernels"]
     for k in kernels:
         k["max_abs_err"] = errs[k["name"]]
-        # serving requests plus the training run's evals, plus the CLI runs' evals
+        # serving requests plus the training run's evals, plus the CLI and zoo runs' evals
         k["launches"] += ev["launches"][k["name"]]
         if k["name"] == "masked_scores":
-            k["launches"] += cli["launches"]["masked_scores"]
+            k["launches"] += cli["launches"]["masked_scores"] + zoo["launches"]["masked_scores"]
             k["launches_cli"] = cli["launches"]["masked_scores"]
+            k["launches_zoo"] = zoo["launches"]["masked_scores"]
+            k["at_d256"] = dict(zoo["k1_d256"], max_abs_err=errs["masked_scores_d256"],
+                                launches_ngcf=zoo["runs"]["ngcf"]["launches"]["masked_scores"])
     # launches per step: fused_adam counts its "pallas" steps only (3 warm-up
     # and 2 x 20 timed at 2048, 3 warm-up and two epochs at 8192; the "off"
     # steps use torch Adam)
@@ -1730,13 +2343,21 @@ def main() -> int:
                 "fused_adam": train["launches"]["fused_adam"] / pallas_steps}
     main_launches = {name: serve["launches"][name] + train["launches"][name]
                      + ev["launches"][name] + tiled["launches"][name] + cli["launches"][name]
-                     for name in per_step}
+                     + zoo["launches"][name] for name in per_step}
     model = train["trainer"].model
     kernels.append(time_adam(model, main_launches["fused_adam"], per_step["fused_adam"],
                              errs["fused_adam"], times["adam_in_step_ms"]))
+    kernels[-1]["launches_zoo"] = zoo["launches"]["fused_adam"]
+    kernels[-1]["ngcf_step"] = dict(zoo["ngcf_adam"],
+                                    launches_ngcf=zoo["runs"]["ngcf"]["launches"]["fused_adam"])
+    hybrid_k4_err = max(v for k, v in zoo["hybrid"]["errors"].items()
+                        if k.startswith("ell_gather_reduce"))
     kernels.append(time_ell(model, main_launches["ell_gather_reduce"],
                             per_step["ell_gather_reduce"],
-                            max(errs["ell_gather_reduce"], tiled["k4_err"])))
+                            max(errs["ell_gather_reduce"], tiled["k4_err"], hybrid_k4_err)))
+    kernels[-1]["launches_zoo"] = zoo["launches"]["ell_gather_reduce"]
+    kernels[-1]["hybrid_sides"] = dict(zoo["hybrid"]["k4_sides"],
+                                       launches=zoo["runs"]["lgn_hybrid"]["k4_sides"])
     kernels[-1]["launches_tiled_bench"] = tiled["launches"]["ell_gather_reduce"]
     kernels[-1]["tiled_sides"] = tiled["k4_sides"]
     kernels[-1]["launches_cli"] = cli["launches"]["ell_gather_reduce"]
@@ -1764,6 +2385,7 @@ def main() -> int:
         "peak_device_mib_training": train["peak_mib"], "drive": drv,
         "tiled": {k: v for k, v in tiled.items() if k not in ("k4_sides", "launches")},
         "cli": {k: v for k, v in cli.items() if k != "model"},
+        "zoo": zoo,
         "phase_s": phase_s, "smoke_s": time.perf_counter() - t_start,
     }))
     log(json.dumps({"kernels": kernels}))

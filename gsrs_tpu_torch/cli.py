@@ -8,11 +8,12 @@ raises when there is no card; `main`'s ``device`` keyword lets a caller
 
     python -m gsrs_tpu_torch --dataset gowalla --epochs 1000 --bf16
 
-Flags of features not ported yet raise `NotImplementedError` naming their
-ROADMAP.md item: ``--spmm hybrid|segment`` (A3), ``--model
-mf|ngcf|xsimgcl|ultragcn`` (A5), ``--data_axis``/``--model_axis`` > 1
-(A7). Flags the JAX package accepts and ignores (``--a_fold``,
-``--A_split``, ``--multicore``, the PPR flags) are accepted and ignored.
+Every model (``--model lgn|mf|ngcf|xsimgcl|ultragcn``) and layout
+(``--spmm ell|tiled|hybrid|segment``) of the JAX package runs; a mesh
+(``--data_axis``/``--model_axis`` > 1) raises `NotImplementedError`
+naming its ROADMAP.md item (A7). Flags the JAX package accepts and
+ignores (``--a_fold``, ``--A_split``, ``--multicore``, the PPR flags) are
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from gsrs_tpu_torch.device import DeviceLike
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gsrs_tpu_torch",
-        description="Graph recommendation training (LightGCN) on a CUDA card",
+        description="Graph recommendation training (the LightGCN family) on a CUDA card",
     )
     # core training
     p.add_argument("--bpr_batch", type=int, default=2048)
@@ -116,8 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", help="bf16 propagation")
     p.add_argument("--spmm", type=str, default="ell",
                    choices=["ell", "hybrid", "tiled", "segment"],
-                   help="propagation layout: ell (bucketed ELL through the CUDA gather-reduce) "
-                   "or tiled (per-row-group hub blocks over a spectral order + residual ELL)")
+                   help="propagation layout: ell (bucketed ELL through the CUDA gather-reduce), "
+                   "tiled (per-row-group hub blocks over a spectral order + residual ELL), "
+                   "hybrid (hub-column dense blocks + residual ELL) or segment (the JAX "
+                   "package's segment sums over the sorted edge lists: the same sums, run "
+                   "here on the ELL layout)")
     p.add_argument("--hybrid_cols", type=int, default=8192)
     p.add_argument("--tiled_groups", type=int, default=32,
                    help="row groups per direction for --spmm tiled")
@@ -236,16 +240,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
 
 def check_ported(cfg: ExperimentConfig) -> None:
     """Raise `NotImplementedError` naming the ROADMAP.md item of a
-    requested feature the port does not run yet."""
-    from gsrs_tpu_torch.models.registry import NOT_PORTED
-
-    if cfg.model.model in NOT_PORTED:
-        raise NotImplementedError(
-            f"--model {cfg.model.model} is not ported yet (ROADMAP.md A5, graph zoo)")
-    if cfg.model.spmm_mode in ("hybrid", "segment"):
-        raise NotImplementedError(
-            f"--spmm {cfg.model.spmm_mode} is not ported yet (ROADMAP.md A3, LightGCN "
-            "extensions)")
+    requested feature the port does not run yet: a mesh."""
     par = cfg.parallel
     if par.data_axis * par.model_axis > 1:
         raise NotImplementedError(
@@ -272,6 +267,27 @@ def load_i2i(path: str):
     return ItemItemGraph.from_scipy(mat)
 
 
+def layout_from_interactions(cfg: ModelConfig, data):
+    """The propagation layout of ``cfg.spmm_mode`` built from the dataset
+    (the segment layout is the ELL one), or None where the model
+    propagates nothing (mf, ultragcn)."""
+    import torch
+
+    from gsrs_tpu_torch.ops.ell import ell_from_interactions
+    from gsrs_tpu_torch.ops.hybrid import hybrid_from_interactions
+    from gsrs_tpu_torch.ops.tiled import tiled_from_interactions
+
+    if cfg.model in ("mf", "ultragcn") or cfg.num_layers == 0:
+        return None
+    dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
+    if cfg.spmm_mode == "tiled":
+        return tiled_from_interactions(data, groups=cfg.tiled_groups, cols=cfg.tiled_cols,
+                                       dtype=dtype)
+    if cfg.spmm_mode == "hybrid":
+        return hybrid_from_interactions(data, cols=cfg.hybrid_cols, dtype=dtype)
+    return ell_from_interactions(data)
+
+
 def main(argv: Optional[list] = None, device: DeviceLike = None):
     """Train as the flags say → (the `Trainer`, the final `TrainState`);
     the trainer's model holds the final parameters. ``device`` defaults
@@ -280,14 +296,10 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
     cfg = config_from_args(args)
     check_ported(cfg)
 
-    import torch
-
     from gsrs_tpu_torch.data.adjacency import build_graph
     from gsrs_tpu_torch.data.dataset import load_dataset, load_lastfm
     from gsrs_tpu_torch.device import resolve_device
     from gsrs_tpu_torch.models.registry import build_model
-    from gsrs_tpu_torch.ops.ell import ell_from_interactions
-    from gsrs_tpu_torch.ops.tiled import tiled_from_interactions
     from gsrs_tpu_torch.train.trainer import Trainer
     from gsrs_tpu_torch.utils.seeding import set_seed
 
@@ -304,13 +316,8 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
     i2i = None
     if cfg.model.use_item_item and cfg.model.i2i_path:
         i2i = load_i2i(cfg.model.i2i_path)
-    if cfg.model.spmm_mode == "tiled":
-        dtype = torch.bfloat16 if cfg.model.bf16_compute else torch.float32
-        ell = tiled_from_interactions(data, groups=cfg.model.tiled_groups,
-                                      cols=cfg.model.tiled_cols, dtype=dtype)
-    else:
-        ell = ell_from_interactions(data)
-    model = build_model(cfg.model, graph, i2i, ell, device=device)
+    model = build_model(cfg.model, graph, i2i, layout_from_interactions(cfg.model, data),
+                        device=device, cache_dir=cfg.data.dataset_dir)
     trainer = Trainer(cfg, data, graph, model, device=device)
     if args.epoch_samples:
         trainer.epoch_samples = args.epoch_samples

@@ -1,14 +1,15 @@
-"""Carry a JAX LightGCN parameter pytree, and its optimizer state, across
-to the port.
+"""Carry a JAX graph model's parameter pytree, and its optimizer state,
+across to the port.
 
 JAX's pop-gate layers compute ``x @ W + b`` with W of shape
 (fan_in, fan_out); `nn.Linear` computes ``x @ weight.T + bias`` with
 weight (fan_out, fan_in), so the weights, and their Adam moments, are
-transposed."""
+transposed. NGCF's per-layer ``ngcf_{w1,w2,b1,b2}_{k}`` keep their names
+and shapes: the port applies them as ``x @ W`` too."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,18 @@ _POP_GATE = {
 }
 
 
+def _names(cfg: ModelConfig) -> Dict[str, Tuple[str, bool]]:
+    """JAX name → (state_dict name, transpose) of ``cfg``'s model (NGCF
+    and UltraGCN run without the pop gate, whatever the config says)."""
+    names = dict(_EMBEDDINGS)
+    if cfg.use_pop_gate and cfg.model not in ("ngcf", "ultragcn"):
+        names.update(_POP_GATE)
+    if cfg.model == "ngcf":
+        names.update({f"ngcf_{w}_{k}": (f"ngcf_{w}_{k}", False)
+                      for k in range(cfg.num_layers) for w in ("w1", "w2", "b1", "b2")})
+    return names
+
+
 def _tensor(value, transpose: bool, device: torch.device) -> torch.Tensor:
     a = np.asarray(value, dtype=np.float32)
     return torch.from_numpy(np.array(a.T if transpose else a, order="C")).to(device)
@@ -34,10 +47,10 @@ def _tensor(value, transpose: bool, device: torch.device) -> torch.Tensor:
 def params_from_jax(
     params: Mapping[str, np.ndarray], cfg: ModelConfig, device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
-    """JAX ``LightGCN.init_params``-shaped dict → a state dict for
-    `gsrs_tpu_torch.models.lightgcn.LightGCN.load_state_dict`, on
-    ``device`` (default ``cuda:0``)."""
-    names = dict(_EMBEDDINGS, **(_POP_GATE if cfg.use_pop_gate else {}))
+    """JAX ``init_params``-shaped dict of ``cfg.model`` → a state dict for
+    the port's model's ``load_state_dict``, on ``device`` (default
+    ``cuda:0``)."""
+    names = _names(cfg)
     if set(params) != set(names):
         raise ValueError(
             f"parameter names {sorted(params)} do not match the config's {sorted(names)}"
@@ -81,7 +94,7 @@ def opt_state_from_jax(opt_state: Any, cfg, model):
     adam = _adam_moments(opt_state)
     if adam is None:
         raise ValueError(f"no Adam state (count, mu, nu) in {type(opt_state).__name__}")
-    names = dict(_EMBEDDINGS, **(_POP_GATE if cfg.model.use_pop_gate else {}))
+    names = _names(cfg.model)
     if set(adam.mu) != set(names) or set(adam.nu) != set(names):
         raise ValueError(f"moment names {sorted(adam.mu)} do not match the config's "
                          f"{sorted(names)}")

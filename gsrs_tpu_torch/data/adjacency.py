@@ -9,9 +9,10 @@ weights are cached per dataset directory in ``norm_edges_cache.npz``
 with a checksum of the edge list; the cache file is the JAX package's,
 so the two packages share it.
 
-Arrays stay numpy on the host: the serving path propagates through the
-ELL layout (`gsrs_tpu_torch.ops.ell`), and the only part of this graph
-that reaches the device is the item degree vector of the pop gate."""
+Arrays stay numpy on the host. The layouts built from them
+(`gsrs_tpu_torch.ops.ell`, ``tiled``, ``hybrid``; `canonical_edges` gives
+them the edge list back) are what reaches the device, beside the degree
+vectors."""
 
 from __future__ import annotations
 
@@ -47,6 +48,20 @@ class BipartiteGraph:
     n_edges: int
 
 
+def canonical_edges(graph: BipartiteGraph):
+    """(users, items, weights) of the graph's real edges in canonical
+    order: the by-user sort inverted through ``perm_by_u``, padding
+    dropped; the arrays' own dtypes."""
+    sorted_u, sorted_i, sorted_w = graph.edge_u_by_u, graph.edge_i_by_u, graph.edge_w_by_u
+    perm = np.asarray(graph.perm_by_u)
+    out = []
+    for sorted_x in (sorted_u, sorted_i, sorted_w):
+        x = np.empty_like(np.asarray(sorted_x))
+        x[perm] = sorted_x
+        out.append(x[: graph.n_edges])
+    return tuple(out)
+
+
 def normalized_edge_weights(
     users: np.ndarray,
     items: np.ndarray,
@@ -62,6 +77,19 @@ def normalized_edge_weights(
     with np.errstate(divide="ignore"):
         w = np.where(prod > 0, 1.0 / np.sqrt(np.maximum(prod, 1e-300)), 0.0)
     return w
+
+
+def dense_normalized_adjacency(data: InteractionData) -> np.ndarray:
+    """Dense (n+m)² float64 ``D^-1/2 [[0, R], [Rᵀ, 0]] D^-1/2``, the
+    oracle of the tests (0 where a degree is 0)."""
+    n, m = data.n_users, data.m_items
+    A = np.zeros((n + m, n + m), dtype=np.float64)
+    A[data.train_users, n + data.train_items] = 1.0
+    A[n + data.train_items, data.train_users] = 1.0
+    d = A.sum(axis=1)
+    with np.errstate(divide="ignore"):
+        dinv = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-300)), 0.0)
+    return dinv[:, None] * A * dinv[None, :]
 
 
 def _edge_checksum(users: np.ndarray, items: np.ndarray) -> np.int64:

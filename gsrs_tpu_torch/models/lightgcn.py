@@ -2,26 +2,26 @@
 
 The module holds the embedding tables (and, with the pop gate, its four
 `nn.Linear` layers) as parameters, and the layout of the normalized
-bipartite graph on the same device: ELL (`gsrs_tpu_torch.ops.ell`) or
-tiled (`gsrs_tpu_torch.ops.tiled`, dispatched on the layout's type as in
-the JAX package). `propagate` runs K layers and the mean over layers
-0..K, with edge dropout when given a generator; `final_embeddings` adds
-the pop-gate fusion; `bpr_loss` is the BPR loss with the reference's L2
-term (``aux["reg"]``, scaled by the trainer's decay) and the
-gate-entropy bonus. Gradients flow through each layout's scatter-free
-backward.
+bipartite graph on the same device, dispatched on the layout's type as in
+the JAX package: ELL (`gsrs_tpu_torch.ops.ell`, which the segment layout
+also runs: `gsrs_tpu_torch.ops.spmm`), tiled (`gsrs_tpu_torch.ops.tiled`)
+or hybrid (`gsrs_tpu_torch.ops.hybrid`). `propagate` runs K
+layers and the mean over layers 0..K, with edge dropout when given a
+generator; `final_embeddings` adds the pop-gate fusion; `bpr_loss` is the
+BPR loss with the reference's L2 term (``aux["reg"]``, scaled by the
+trainer's decay) and the gate-entropy bonus. Gradients flow through each
+layout's scatter-free backward.
 
 With ``use_item_item`` and an `ItemItemGraph`, `propagate` adds
 ``i2i_alpha · A_i2i @ all_items`` after the fp32 cast of the layer mean;
 the product runs through the ELL gather-reduce (`ops.ell.ell_spmm`), its
-backward through the transposed side. The hybrid and segment layouts
-belong to ROADMAP.md A3 and raise here.
+backward through the transposed side.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,10 +35,16 @@ from gsrs_tpu_torch.ops.ell import (
     EllGraph, build_ell_graph, ell_from_graph, ell_propagate_layer, ell_spmm,
 )
 from gsrs_tpu_torch.ops.hashdrop import hashdrop_from_generator
+from gsrs_tpu_torch.ops.hybrid import (
+    HybridGraph, hybrid_from_graph, hybrid_masks, hybrid_propagate_layer,
+)
 from gsrs_tpu_torch.ops.spmm import edge_keep_mask
 from gsrs_tpu_torch.ops.tiled import (
     TiledGraph, tiled_from_graph, tiled_masks, tiled_propagate_layer,
 )
+
+Layout = Union[EllGraph, TiledGraph, HybridGraph]
+Layer = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,19 +98,34 @@ def popularity_scalar(item_degrees: torch.Tensor) -> torch.Tensor:
     return (pop - mean) / (std + 1e-8)
 
 
+def default_layout(cfg: ModelConfig, graph: BipartiteGraph) -> Layout:
+    """The layout of ``cfg.spmm_mode`` built from ``graph``'s padded edge
+    arrays, dense blocks in the compute dtype (the JAX package's
+    defaults). The segment layout is the ELL layout (`ops.spmm`)."""
+    dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
+    if cfg.spmm_mode == "tiled":
+        return tiled_from_graph(graph, groups=cfg.tiled_groups, cols=cfg.tiled_cols, dtype=dtype)
+    if cfg.spmm_mode == "hybrid":
+        return hybrid_from_graph(graph, cols=cfg.hybrid_cols, dtype=dtype)
+    return ell_from_graph(graph)
+
+
 class LightGCN(nn.Module):
-    """LightGCN on ``device`` (default ``cuda:0``). ``ell`` (an `EllGraph`
-    or a `TiledGraph`) defaults to the layout of ``cfg.spmm_mode`` rebuilt
-    from ``graph``; ``i2i`` is used only with ``cfg.use_item_item`` (and
-    without it no smoothing runs, as in the JAX package); ``generator``
-    is a CPU `torch.Generator` for `init_params` (seed 0 when None)."""
+    """LightGCN on ``device`` (default ``cuda:0``). ``ell`` (an `EllGraph`,
+    `TiledGraph` or `HybridGraph`) defaults to the layout of
+    ``cfg.spmm_mode`` rebuilt from ``graph`` (`default_layout`); under
+    ``spmm_mode="segment"`` the model runs the ELL layout and ignores any
+    other, as the JAX package ignores ``ell`` there. ``i2i`` is used only with
+    ``cfg.use_item_item`` (and without it no smoothing runs, as in the JAX
+    package); ``generator`` is a CPU `torch.Generator` for `init_params`
+    (seed 0 when None)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         graph: BipartiteGraph,
         i2i: Optional[ItemItemGraph] = None,
-        ell: Union[EllGraph, TiledGraph, None] = None,
+        ell: Optional[Layout] = None,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -113,24 +134,15 @@ class LightGCN(nn.Module):
             raise ValueError(
                 f"spmm_mode must be 'ell', 'hybrid', 'tiled' or 'segment', got '{cfg.spmm_mode}'"
             )
-        if cfg.spmm_mode not in ("ell", "tiled"):
-            raise NotImplementedError(
-                f"spmm_mode='{cfg.spmm_mode}' is not ported yet: 'hybrid' and 'segment' are "
-                "ROADMAP.md A3 (LightGCN extensions)"
-            )
         device = resolve_device(device)
         self.cfg = cfg
         self.graph = graph
         self.n_users = graph.n_users
         self.m_items = graph.m_items
-        if ell is None and cfg.num_layers > 0:
-            if cfg.spmm_mode == "tiled":
-                ell = tiled_from_graph(
-                    graph, groups=cfg.tiled_groups, cols=cfg.tiled_cols,
-                    dtype=torch.bfloat16 if cfg.bf16_compute else torch.float32,
-                )
-            else:
-                ell = ell_from_graph(graph)
+        if cfg.num_layers == 0:
+            ell = None
+        elif ell is None or (cfg.spmm_mode == "segment" and not isinstance(ell, EllGraph)):
+            ell = default_layout(cfg, graph)
         self.ell = None if ell is None else ell.to(device)
         if i2i is not None and i2i.m_items != self.m_items:
             raise ValueError(f"the i2i graph has {i2i.m_items} items, the model {self.m_items}")
@@ -146,7 +158,12 @@ class LightGCN(nn.Module):
             self.gate_fc2 = nn.Linear(g, 1, device=device)
             pop = popularity_scalar(torch.from_numpy(np.asarray(graph.item_degrees)))
             self.register_buffer("pop_feat", pop[:, None].to(device), persistent=False)
+        self._add_parameters(device)
         self.init_params(generator)
+
+    def _add_parameters(self, device: torch.device) -> None:
+        """Register a subclass's further parameters (none here), before
+        `init_params` draws them."""
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
@@ -174,26 +191,48 @@ class LightGCN(nn.Module):
         and only the mean is cast back, where the JAX package casts. With
         ``cfg.dropout`` and a ``dropout_generator`` (on the model's
         device), one edge keep mask is drawn per call and used by every
-        layer: in canonical edge order on the ELL layout, the stateless
-        hash mask on the tiled one."""
-        tiled = isinstance(self.ell, TiledGraph)
-        u, i = self.user_emb, self.item_emb
-        if self.cfg.bf16_compute:
-            u, i = u.to(torch.bfloat16), i.to(torch.bfloat16)
-        keep = None
-        if dropout_generator is not None and self.cfg.dropout:
-            if tiled:
-                keep = tiled_masks(self.ell, hashdrop_from_generator(dropout_generator,
-                                                                     self.cfg.keep_prob))
-            else:
-                keep = edge_keep_mask(dropout_generator, self.graph, self.cfg.keep_prob, u.dtype)
-        layer = tiled_propagate_layer if tiled else ell_propagate_layer
+        layer (`_layer`)."""
+        u, i = self._tables()
+        layer = self._layer(dropout_generator, u.dtype)
         acc_u, acc_i = u, i
         cur_u, cur_i = u, i
         for _ in range(self.cfg.num_layers):
-            cur_u, cur_i = layer(self.ell, cur_u, cur_i, keep)
+            cur_u, cur_i = layer(cur_u, cur_i)
             acc_u = acc_u + cur_u
             acc_i = acc_i + cur_i
+        return self._readout(acc_u, acc_i)
+
+    def _tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The embedding tables in the compute dtype."""
+        u, i = self.user_emb, self.item_emb
+        if self.cfg.bf16_compute:
+            u, i = u.to(torch.bfloat16), i.to(torch.bfloat16)
+        return u, i
+
+    def _layer(self, dropout_generator: Optional[torch.Generator], dtype: torch.dtype) -> Layer:
+        """One layer of the model's layout, (cur_u, cur_i) → (new_u,
+        new_i), with this propagation's dropout drawn once (with
+        ``cfg.dropout`` and a generator) for every layer: in canonical edge
+        order on the ELL layout (`edge_keep_mask`, the edges JAX's segment
+        layout drops in its two sort orders), by the stateless hash on the
+        tiled and hybrid ones."""
+        g, cfg = self.ell, self.cfg
+        masks = None
+        if isinstance(g, TiledGraph):
+            fn, make = tiled_propagate_layer, lambda gen: tiled_masks(
+                g, hashdrop_from_generator(gen, cfg.keep_prob))
+        elif isinstance(g, HybridGraph):
+            fn, make = hybrid_propagate_layer, lambda gen: hybrid_masks(
+                g, hashdrop_from_generator(gen, cfg.keep_prob))
+        else:
+            fn, make = ell_propagate_layer, lambda gen: edge_keep_mask(
+                gen, self.graph, cfg.keep_prob, dtype)
+        if dropout_generator is not None and cfg.dropout:
+            masks = make(dropout_generator)
+        return lambda cur_u, cur_i: fn(g, cur_u, cur_i, masks)
+
+    def _readout(self, acc_u: torch.Tensor, acc_i: torch.Tensor):
+        """The layer sums' mean as fp32, then the i2i smoothing."""
         scale = 1.0 / (self.cfg.num_layers + 1)
         all_users, all_items = (acc_u * scale).float(), (acc_i * scale).float()
         if self.i2i is not None and self.cfg.i2i_alpha > 0.0:

@@ -2,38 +2,46 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
 from gsrs_tpu_torch.config import ModelConfig
 from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.device import DeviceLike
-from gsrs_tpu_torch.models.lightgcn import ItemItemGraph, LightGCN
-from gsrs_tpu_torch.ops.ell import EllGraph
-from gsrs_tpu_torch.ops.tiled import TiledGraph
+from gsrs_tpu_torch.models.lightgcn import ItemItemGraph, Layout, LightGCN
+from gsrs_tpu_torch.models.mf import PureMF
+from gsrs_tpu_torch.models.ngcf import NGCF
+from gsrs_tpu_torch.models.ultragcn import UltraGCN
+from gsrs_tpu_torch.models.xsimgcl import XSimGCL
 
-MODELS = {"lgn": LightGCN}
-# registered in the JAX package, ported with the graph zoo (ROADMAP.md A5)
-NOT_PORTED = ("mf", "ngcf", "xsimgcl", "ultragcn")
+MODELS = {
+    "lgn": LightGCN,
+    "mf": PureMF,
+    "ngcf": NGCF,
+    "xsimgcl": XSimGCL,
+    "ultragcn": UltraGCN,
+}
 
 
 def build_model(
     cfg: ModelConfig,
     graph: BipartiteGraph,
     i2i: Optional[ItemItemGraph] = None,
-    ell: Union[EllGraph, TiledGraph, None] = None,
+    ell: Optional[Layout] = None,
     device: DeviceLike = None,
     generator: Optional[torch.Generator] = None,
+    cache_dir: Optional[str] = None,
 ) -> LightGCN:
     """Build the configured model on ``device`` (default ``cuda:0``);
-    ``i2i`` and ``ell`` as in the JAX package's `build_model`."""
-    if cfg.model in NOT_PORTED:
-        raise NotImplementedError(
-            f"model '{cfg.model}' is not ported yet (ROADMAP.md A5, graph zoo)"
-        )
+    ``i2i`` and ``ell`` as in the JAX package's `build_model`.
+    ``cache_dir`` (the dataset directory) holds UltraGCN's item–item top-K
+    cache."""
     if cfg.model not in MODELS:
         raise ValueError(
             f"model '{cfg.model}' is not registered; available: {sorted(MODELS)}"
         )
-    return MODELS[cfg.model](cfg, graph, i2i=i2i, ell=ell, device=device, generator=generator)
+    kw = dict(i2i=i2i, ell=ell, device=device, generator=generator)
+    if cfg.model == "ultragcn":
+        return UltraGCN(cfg, graph, ii_cache_dir=cache_dir, **kw)
+    return MODELS[cfg.model](cfg, graph, **kw)

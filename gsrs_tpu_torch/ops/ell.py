@@ -7,13 +7,14 @@ per bucket (the CUDA kernel of `gsrs_tpu_torch.ops.ell_kernel`, one
 launch per side on the card), and the output rows are assembled by one
 more gather. Padding slots carry weight 0 and column 0. Rows wider than
 ``max_width`` are split into chunks; the overflow chunks are added back
-into their real rows with `index_add_`.
+into their real rows one chunk level at a time (chunk 1 of every split
+row, then chunk 2, ...), so no launch adds twice into one row and the
+sums are JAX's, in its order, on every device.
 
 `ell_propagate_layer` is a `torch.autograd.Function` whose backward is
 the transpose-side apply through the same kernel, with the same masked
 weights, as the JAX package's scatter-free custom VJP: no scatter over
-the edges and no atomics in the kernel, in either direction (only the few
-overflow chunks of split rows go through `index_add_`, as in JAX). The
+the edges and no atomics in the kernel, in either direction. The
 optional ``edge_mask`` (canonical edge order,
 `gsrs_tpu_torch.ops.spmm.edge_keep_mask`) scales each slot's weight by
 ``edge_mask[eidx]``.
@@ -54,26 +55,24 @@ class EllSide:
 
     ``assemble``: (n_rows,) indices into the concatenation of the bucket
     outputs with one zero row appended; zero-degree rows point at it.
-    ``extra_dst``/``extra_pos``: overflow chunks of rows wider than
-    ``max_width``; chunk output ``extra_pos[j]`` is added into row
-    ``extra_dst[j]``. None when no row was split."""
+    ``extra_levels``: the overflow chunks of rows wider than
+    ``max_width``, grouped by chunk index: (dst, pos) of every chunk 1,
+    then of every chunk 2, ...; chunk output ``pos[j]`` is added into row
+    ``dst[j]``, and the destinations within a level are distinct (the
+    JAX package's ``extra_dst``/``extra_pos`` pairs, regrouped). Empty
+    when no row was split."""
 
     buckets: Tuple[EllBucket, ...]
     assemble: torch.Tensor  # (n_rows,) int32
     n_rows: int
-    extra_dst: Optional[torch.Tensor] = None  # (n_extra,) int32
-    extra_pos: Optional[torch.Tensor] = None  # (n_extra,) int32
+    extra_levels: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = ()  # int32 (dst, pos)
 
     def to(self, device) -> "EllSide":
-        def mv(t):
-            return None if t is None else t.to(device)
-
         return EllSide(
             buckets=tuple(b.to(device) for b in self.buckets),
             assemble=self.assemble.to(device),
             n_rows=self.n_rows,
-            extra_dst=mv(self.extra_dst),
-            extra_pos=mv(self.extra_pos),
+            extra_levels=tuple((d.to(device), p.to(device)) for d, p in self.extra_levels),
         )
 
     @functools.cached_property
@@ -113,14 +112,14 @@ def _build_side(
     """Group rows by degree into buckets of fine widths (multiples of 4
     up to 64, then powers of two). Rows with degree > ``max_width`` are
     split into ceil(D/max_width) virtual rows whose overflow chunks are
-    summed back through ``extra_dst``/``extra_pos``."""
+    summed back through ``extra_levels``."""
     order = np.argsort(dst, kind="stable")
     dst, src, w, eidx = dst[order], src[order], w[order], eidx[order]
     degrees = np.bincount(dst, minlength=n_rows)
     row_start = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int64)
 
     n_real = n_rows
-    extra_dst_list = []
+    extra_dst_list, extra_level_list = [], []
     if max_width & (max_width - 1):
         # the width cap relies on pow2 bucket widths: round down to one
         max_width = 1 << (max_width.bit_length() - 1)
@@ -135,6 +134,7 @@ def _build_side(
             chunk = np.arange(D) // max_width
             dst[pos] = np.where(chunk == 0, r, n_virtual + chunk - 1)
             extra_dst_list.extend([r] * (k - 1))
+            extra_level_list.extend(range(k - 1))
             n_virtual += k - 1
         order2 = np.argsort(dst, kind="stable")
         dst, src, w, eidx = dst[order2], src[order2], w[order2], eidx[order2]
@@ -172,7 +172,10 @@ def _build_side(
         n_assembled += n_b
     # zero-degree rows → the appended zero row at index n_assembled
     assemble = np.where(concat_pos >= 0, concat_pos, n_assembled).astype(np.int32)
-    extra_dst = extra_pos = None
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    levels = []
     if extra_dst_list:
         extra_dst = np.asarray(extra_dst_list, dtype=np.int32)
         extra_pos = assemble[n_real:]  # virtual rows all have degree > 0
@@ -182,16 +185,14 @@ def _build_side(
              c, ws, es)
             for r, c, ws, es in buckets
         ]
-
-    def t(a):
-        return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
-
+        level = np.asarray(extra_level_list)
+        levels = [(t(extra_dst[level == j]), t(extra_pos[level == j]))
+                  for j in range(int(level.max()) + 1)]
     return EllSide(
         buckets=tuple(EllBucket(*(t(a) for a in b)) for b in buckets),
         assemble=t(assemble[:n_real]),
         n_rows=n_real,
-        extra_dst=t(extra_dst),
-        extra_pos=t(extra_pos),
+        extra_levels=tuple(levels),
     )
 
 
@@ -217,21 +218,11 @@ def build_ell_graph(
 
 def ell_from_graph(graph, min_width: int = 4) -> EllGraph:
     """Rebuild the ELL layout from a BipartiteGraph's padded edge arrays
-    (inverting the by-user sort back to canonical order, dropping
-    padding)."""
-    sorted_u = np.asarray(graph.edge_u_by_u)
-    sorted_i = np.asarray(graph.edge_i_by_u)
-    sorted_w = np.asarray(graph.edge_w_by_u)
-    perm = np.asarray(graph.perm_by_u)
-    E = sorted_u.shape[0]
-    users = np.empty(E, sorted_u.dtype)
-    items = np.empty(E, sorted_i.dtype)
-    w = np.empty(E, sorted_w.dtype)
-    users[perm] = sorted_u
-    items[perm] = sorted_i
-    w[perm] = sorted_w
-    n = graph.n_edges
-    return build_ell_graph(users[:n], items[:n], w[:n], graph.n_users, graph.m_items, min_width)
+    (`canonical_edges`: canonical order, padding dropped)."""
+    from gsrs_tpu_torch.data.adjacency import canonical_edges
+
+    users, items, w = canonical_edges(graph)
+    return build_ell_graph(users, items, w, graph.n_users, graph.m_items, min_width)
 
 
 def ell_from_interactions(data, min_width: int = 4) -> EllGraph:
@@ -266,9 +257,10 @@ def _apply_side(
     concat[table.n_rows].zero_()
     gather_reduce(table, x.contiguous(), edge_mask, out=concat)
     out = concat.index_select(0, side.assemble)
-    if side.extra_dst is not None:
-        # overflow chunks of split mega rows (see EllSide)
-        out.index_add_(0, side.extra_dst, concat.index_select(0, side.extra_pos))
+    for dst, pos in side.extra_levels:
+        # overflow chunks of split mega rows (see EllSide), one chunk level
+        # a launch: its rows are distinct, so each gets one add, in chunk order
+        out.index_add_(0, dst, concat.index_select(0, pos))
     return out
 
 

@@ -231,23 +231,13 @@ def tiled_from_graph(
     min_width: int = 4,
     seed: int = 0,
 ) -> TiledGraph:
-    """Build from a BipartiteGraph's padded edge arrays (inverting the
-    by-user sort back to canonical order, dropping padding)."""
+    """Build from a BipartiteGraph's padded edge arrays
+    (`canonical_edges`: canonical order, padding dropped)."""
+    from gsrs_tpu_torch.data.adjacency import canonical_edges
     from gsrs_tpu_torch.ops.hybrid import resolve_hybrid_cols
 
-    sorted_u = np.asarray(graph.edge_u_by_u)
-    sorted_i = np.asarray(graph.edge_i_by_u)
-    sorted_w = np.asarray(graph.edge_w_by_u)
-    perm = np.asarray(graph.perm_by_u)
-    E = sorted_u.shape[0]
-    users = np.empty(E, np.int64)
-    items = np.empty(E, np.int64)
-    w = np.empty(E, sorted_w.dtype)
-    users[perm] = sorted_u
-    items[perm] = sorted_i
-    w[perm] = sorted_w
-    n = graph.n_edges
-    users, items, w = users[:n], items[:n], w[:n]
+    users, items, w = canonical_edges(graph)
+    users, items = users.astype(np.int64), items.astype(np.int64)
     cols = resolve_hybrid_cols(graph.n_users, graph.m_items, cols, dtype)
     return _build_tiled_graph(users, items, w, graph.n_users, graph.m_items, groups, cols, dtype,
                               min_width, seed)

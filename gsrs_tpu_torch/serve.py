@@ -242,8 +242,8 @@ def export_checkpoint(args) -> Retriever:
     from gsrs_tpu_torch.data.adjacency import build_graph
     from gsrs_tpu_torch.data.dataset import load_dataset
     from gsrs_tpu_torch.models.lightgcn import ItemItemGraph
+    from gsrs_tpu_torch.cli import layout_from_interactions
     from gsrs_tpu_torch.models.registry import build_model
-    from gsrs_tpu_torch.ops.ell import ell_from_interactions
     from gsrs_tpu_torch.train.checkpoint import CheckpointManager, legacy_name
 
     if args.model_axis > 1:
@@ -272,8 +272,9 @@ def export_checkpoint(args) -> Retriever:
         i2i = ItemItemGraph.from_scipy(sp.load_npz(cfg.i2i_path or args.i2i_path))
     # the propagation runs on the ELL layout whatever layout trained it:
     # every layout computes the same product
-    model = build_model(dataclasses.replace(cfg, spmm_mode="ell"), graph, i2i=i2i,
-                        ell=ell_from_interactions(data), device=device)
+    cfg = dataclasses.replace(cfg, spmm_mode="ell")
+    model = build_model(cfg, graph, i2i=i2i, ell=layout_from_interactions(cfg, data),
+                        device=device)
     ckpt = CheckpointManager(args.checkpoint_dir)
     path = ckpt.resolve_resume_path(
         None, legacy_name(cfg.model, data.name, cfg.num_layers, cfg.embedding_dim))

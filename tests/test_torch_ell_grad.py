@@ -54,7 +54,7 @@ def test_layer_forward_and_vjp_match_jax(jax_ell, case, masked):
 
     tg, jg, n, m, E = _graphs(case, jax_ell)
     if case == "mega_row":
-        assert tg.by_item.extra_dst is not None
+        assert tg.by_item.extra_levels
     rng = np.random.default_rng(11)
     d = 16
     u, i = (rng.standard_normal((k, d)).astype(np.float32) for k in (n, m))
@@ -302,7 +302,7 @@ def test_kernel_is_deterministic_on_the_card(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_side_with_a_row_past_max_width_on_the_card(cuda, dtype):
     """A hub item rated by 70,000 users crosses max_width (65,536): the
-    layout cuts it into two rows added back through extra_dst, and the
+    layout cuts it into two rows added back through extra_levels, and the
     kernel splits each of those at S."""
     n, m = 70_000, 40
     rng = np.random.default_rng(0)
@@ -313,7 +313,7 @@ def test_side_with_a_row_past_max_width_on_the_card(cuda, dtype):
     w = tadj.normalized_edge_weights(users, items, np.bincount(users, minlength=n),
                                      np.bincount(items, minlength=m))
     graph = tell.build_ell_graph(users.astype(np.int32), items.astype(np.int32), w, n, m)
-    assert graph.by_item.extra_dst is not None
+    assert graph.by_item.extra_levels
     side = graph.to(cuda).by_item
     x = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32) / 4)
     xd = x.to(cuda).to(dtype)

@@ -7,7 +7,8 @@ two-pass sum rebuilt from the list in torch (fp32 partials, added in
 chunk order) equals the plain gather-reduce within 1e-6. The plain
 version is evaluated in float64 there: in fp32 the CPU's einsum over the
 stand-in's widest row (29k slots) is itself 2.2e-6 off the exact sum,
-the two-pass sum 3.3e-7."""
+the two-pass sum 3.3e-7. Rows of three or more ``max_width`` chunks add
+their chunks one chunk level at a time, in JAX's order."""
 
 import numpy as np
 import pytest
@@ -162,7 +163,7 @@ def test_gowalla_sides(gowalla_sides, side):
 
 def test_mega_row_graph():
     """A row wider than max_width is cut into virtual rows by the layout
-    (extra_dst); the work list then cuts each of those at S."""
+    (extra_levels); the work list then cuts each of those at S."""
     n, m = 300, 400
     d = tsyn.powerlaw(n, m, seed=5)
     pairs = np.unique(np.concatenate([np.stack([d.train_users, d.train_items], 1),
@@ -171,7 +172,7 @@ def test_mega_row_graph():
     w = tadj.normalized_edge_weights(users, items, np.bincount(users, minlength=n),
                                      np.bincount(items, minlength=m))
     g = tell.build_ell_graph(users.astype(np.int32), items.astype(np.int32), w, n, m, 4, 128)
-    assert g.by_item.extra_dst is not None
+    assert g.by_item.extra_levels
     buckets = [(b.cols, b.w, b.eidx) for b in g.by_item.buckets]
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((n, 3)).astype(np.float32))
     for split in (32, 64, SPLIT_SLOTS):
@@ -179,6 +180,66 @@ def test_mega_row_graph():
         torch.testing.assert_close(_two_pass_sum(buckets, work, x), _reference(buckets, x),
                                    atol=ATOL, rtol=0)
     assert build_work_list(buckets, 32).splits.shape[0] > 0
+
+
+def _jax_chunk_pairs(j_side):
+    """The JAX side's (extra_dst, extra_pos) pairs, each row's chunks in
+    chunk order."""
+    return list(zip(np.asarray(j_side.extra_dst).tolist(), np.asarray(j_side.extra_pos).tolist()))
+
+
+@pytest.mark.parametrize("max_width", [8, 16])
+def test_wide_row_chunks_add_in_chunk_order_as_jax(max_width):
+    """Rows of three or more chunks (two hub items, of 300 and 150 users,
+    at a small max_width): the overflow chunks are grouped into chunk
+    levels whose rows are distinct (one `index_add_` a level, no repeated
+    index), the levels hold exactly the JAX package's (extra_dst,
+    extra_pos) pairs, the side's output is each row's chunks added left to
+    right in chunk order (bitwise, against that sum rebuilt here), equal to
+    JAX's `.at[].add` within fp32 order, and two applies are bitwise
+    equal."""
+    pytest.importorskip("jax", reason="the JAX package is the reference this test compares with")
+    import jax.numpy as jnp
+
+    from gsrs_tpu.ops import ell as jell
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+
+    n, m = 300, 400
+    d = tsyn.powerlaw(n, m, seed=7)
+    pairs = np.unique(np.concatenate([
+        np.stack([d.train_users, d.train_items], 1),
+        np.stack([np.arange(n), np.full(n, 17)], 1),
+        np.stack([np.arange(0, n, 2), np.full(n // 2, 3)], 1),
+    ]), axis=0)
+    users, items = pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
+    w = tadj.normalized_edge_weights(users, items, np.bincount(users, minlength=n),
+                                     np.bincount(items, minlength=m))
+    args = (users, items, w, n, m, 4, max_width)
+    t_side, j_side = tell.build_ell_graph(*args).by_item, jell.build_ell_graph(*args).by_item
+
+    levels = t_side.extra_levels
+    assert len(levels) == -(-n // max_width) - 1 >= 2  # the widest row has 3+ chunks
+    for dst, pos in levels:
+        assert dst.unique().numel() == dst.numel()
+    got_pairs = sorted((int(a), int(b)) for dst, pos in levels for a, b in zip(dst, pos))
+    assert got_pairs == sorted(_jax_chunk_pairs(j_side))
+    for r in (17, 3):  # level j holds chunk j + 1: JAX's order of the row's chunks
+        chunks = [int(p[dst == r]) for dst, p in levels if bool((dst == r).any())]
+        want = [p for dst, p in _jax_chunk_pairs(j_side) if dst == r]
+        assert chunks == want and len(chunks) == -(-int((items == r).sum()) // max_width) - 1
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((n, 5)).astype(np.float32))
+    out = tell._apply_side(t_side, x)
+    assert torch.equal(out, tell._apply_side(t_side, x))
+    concat = x.new_zeros(t_side.table.n_rows + 1, 5)
+    gather_reduce(t_side.table, x, out=concat)
+    want = concat.index_select(0, t_side.assemble)
+    for dst, pos in levels:
+        for r, p in zip(dst.tolist(), pos.tolist()):
+            want[r] = want[r] + concat[p]
+    assert torch.equal(out, want)
+    j_out = np.asarray(jell._apply_side(j_side, jnp.asarray(x.numpy()), None))
+    np.testing.assert_allclose(out.numpy(), j_out, rtol=1e-5, atol=1e-6)
 
 
 def _rows_around_split(S, seed=0):

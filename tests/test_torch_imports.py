@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax():
                  "data.adjacency", "train.fused_adam", "train.optim", "train.evaluator",
                  "train.trainer", "ops.hybrid", "ops.reorder", "ops.hashdrop", "ops.tiled",
                  "bench", "cli", "__main__", "utils.seeding", "data.i2i", "train.checkpoint",
-                 "train.logging", "ops.topk", "data.dataset"):
+                 "train.logging", "ops.topk", "data.dataset", "ops.linalg", "models.mf",
+                 "models.ngcf", "models.xsimgcl", "models.ultragcn", "models.registry"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"

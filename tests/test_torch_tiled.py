@@ -43,13 +43,25 @@ def _data(seed=3):
                                                                        seed=seed)
 
 
+def _chunk_pairs(side):
+    """The side's overflow-chunk (dst, pos) pairs, sorted: the port keeps
+    them by chunk level (``extra_levels``), JAX by row
+    (``extra_dst``/``extra_pos``, None when no row was split)."""
+    if hasattr(side, "extra_levels"):
+        pairs = [(int(a), int(b)) for d, p in side.extra_levels for a, b in zip(d, p)]
+    elif side.extra_dst is None:
+        pairs = []
+    else:
+        pairs = list(zip(np.asarray(side.extra_dst).tolist(), np.asarray(side.extra_pos).tolist()))
+    return np.asarray(sorted(pairs), dtype=np.int64).reshape(-1, 2)
+
+
 def _side_arrays(side):
     """Every array of an EllSide (JAX's or the port's) as numpy."""
     out = [np.asarray(side.assemble)]
     for b in side.buckets:
         out += [np.asarray(b.rows), np.asarray(b.cols), np.asarray(b.w), np.asarray(b.eidx)]
-    for t in (side.extra_dst, side.extra_pos):
-        out.append(None if t is None else np.asarray(t))
+    out.append(_chunk_pairs(side))
     return out
 
 
