@@ -1,5 +1,5 @@
-"""Carry a JAX graph model's parameter pytree, and its optimizer state,
-across to the port.
+"""Carry a JAX model's parameter pytree, and its optimizer state, across
+to the port.
 
 JAX's pop-gate layers compute ``x @ W + b`` with W of shape
 (fan_in, fan_out); `nn.Linear` computes ``x @ weight.T + bias`` with
@@ -89,7 +89,7 @@ def opt_state_from_jax(opt_state: Any, cfg, model):
     exp_avg_sq and the step count); JAX's ``FusedAdamState`` becomes the
     port's `FusedAdamState`. Moments go to the model's device."""
     from gsrs_tpu_torch.train.fused_adam import FusedAdamState
-    from gsrs_tpu_torch.train.optim import AdamState, ScheduledAdam, make_optimizer
+    from gsrs_tpu_torch.train.optim import ScheduledAdam, make_optimizer
 
     adam = _adam_moments(opt_state)
     if adam is None:
@@ -116,6 +116,14 @@ def opt_state_from_jax(opt_state: Any, cfg, model):
     optimizer, _ = make_optimizer(cfg.train, 1)
     if not isinstance(optimizer, ScheduledAdam):
         return FusedAdamState(count, mu, nu)
+    return _torch_adam_state(optimizer, params, count, mu, nu)
+
+
+def _torch_adam_state(optimizer, params, count: int, mu, nu):
+    """A fresh `AdamState` of ``optimizer`` (a `ScheduledAdam`) over
+    ``params`` holding the step count and the moments by name."""
+    from gsrs_tpu_torch.train.optim import AdamState
+
     state = optimizer.init(params)
     for name, p in params.items():
         state.optimizer.state[p] = {
@@ -124,3 +132,45 @@ def opt_state_from_jax(opt_state: Any, cfg, model):
             "exp_avg_sq": nu[name],
         }
     return AdamState(count, state.optimizer)
+
+
+def seq_params_from_jax(
+    params: Mapping[str, np.ndarray], kind: str, device: DeviceLike = None
+) -> Dict[str, torch.Tensor]:
+    """A JAX sequential model's parameters (``init_params``-shaped, numpy
+    or JAX arrays) → a state dict for the port's ``kind`` model's
+    ``load_state_dict``, on ``device`` (default ``cuda:0``): the same
+    names, shapes and values."""
+    from gsrs_tpu_torch.models.registry import SEQ_MODELS
+
+    if kind not in SEQ_MODELS:
+        raise ValueError(f"unknown sequential model {kind!r}; available: {sorted(SEQ_MODELS)}")
+    device = resolve_device(device)
+    return {name: _tensor(value, False, device) for name, value in params.items()}
+
+
+def seq_opt_state_from_jax(opt_state: Any, model, optimizer):
+    """``optax.adam``'s state (its ``ScaleByAdamState``: count, mu, nu)
+    → the port's `AdamState` of ``optimizer`` (the sequential trainer's
+    `ScheduledAdam`) over ``model``'s parameters, whose values must
+    already be the JAX parameters'. Moments go to the model's device."""
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError(f"no Adam state (count, mu, nu) in {type(opt_state).__name__}")
+    params = dict(model.named_parameters())
+    if set(adam.mu) != set(params) or set(adam.nu) != set(params):
+        raise ValueError(f"moment names {sorted(adam.mu)} do not match the model's "
+                         f"{sorted(params)}")
+
+    def moments(tree):
+        out = {}
+        for name, p in params.items():
+            t = _tensor(tree[name], False, p.device)
+            if t.shape != p.shape:
+                raise ValueError(f"{name}: moment shape {tuple(t.shape)} vs parameter "
+                                 f"{tuple(p.shape)}")
+            out[name] = t
+        return out
+
+    return _torch_adam_state(optimizer, params, int(np.asarray(adam.count)),
+                             moments(adam.mu), moments(adam.nu))

@@ -1,4 +1,5 @@
-"""Model registry (port of `gsrs_tpu.models.registry`)."""
+"""Model registry (port of `gsrs_tpu.models.registry`): the graph family's
+`build_model` and the sequential family's `build_seq_model`."""
 
 from __future__ import annotations
 
@@ -45,3 +46,67 @@ def build_model(
     if cfg.model == "ultragcn":
         return UltraGCN(cfg, graph, ii_cache_dir=cache_dir, **kw)
     return MODELS[cfg.model](cfg, graph, **kw)
+
+
+SEQ_MODELS = ("sasrec", "gru4rec", "bert4rec")
+
+
+def build_seq_model(
+    kind: str,
+    m_items: int,
+    max_len: int = 50,
+    dim: int = 64,
+    hidden: int = 64,
+    blocks: int = 2,
+    heads: int = 1,
+    dropout: float = 0.2,
+    bf16: bool = False,
+    mask_prob: float = 0.3,
+    last_only_prob: float = 0.6,
+    device: DeviceLike = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """The sequential model ``kind`` on ``device`` (default ``cuda:0``),
+    its parameters drawn from the CPU ``generator`` (seed 0 when None):
+    the one place that maps the flat CLI and serving hyperparameters onto
+    each model's config. ``blocks`` is GRU4Rec's layer count, ``hidden``
+    its hidden width."""
+    kw = dict(device=device, generator=generator)
+    if kind == "sasrec":
+        from gsrs_tpu_torch.models.sasrec import SASRec, SASRecConfig
+
+        return SASRec(SASRecConfig(
+            m_items=m_items, max_len=max_len, embedding_dim=dim, num_blocks=blocks,
+            num_heads=heads, ffn_hidden=hidden, dropout_rate=dropout, bf16_compute=bf16), **kw)
+    if kind == "bert4rec":
+        from gsrs_tpu_torch.models.bert4rec import BERT4Rec, BERT4RecConfig
+
+        return BERT4Rec(BERT4RecConfig(
+            m_items=m_items, max_len=max_len, embedding_dim=dim, num_blocks=blocks,
+            num_heads=heads, ffn_hidden=hidden, dropout_rate=dropout, mask_prob=mask_prob,
+            last_only_prob=last_only_prob, bf16_compute=bf16), **kw)
+    if kind == "gru4rec":
+        from gsrs_tpu_torch.models.gru4rec import GRU4Rec, GRU4RecConfig
+
+        return GRU4Rec(GRU4RecConfig(
+            m_items=m_items, max_len=max_len, embedding_dim=dim, hidden_dim=hidden,
+            num_layers=blocks, dropout_rate=dropout, bf16_compute=bf16), **kw)
+    raise ValueError(
+        f"sequential model '{kind}' is not registered; available: {sorted(SEQ_MODELS)}"
+    )
+
+
+def seq_model_meta(model) -> dict:
+    """The flat hyperparameters of a sequential model, `build_seq_model`'s
+    inverse, as ``model_meta.json`` and serving artifacts hold them (the
+    JAX package's keys; ``kind`` is the class name, lower-cased)."""
+    c = model.cfg
+    return {
+        "kind": type(model).__name__.lower(),
+        "m_items": int(c.m_items),
+        "max_len": int(c.max_len),
+        "dim": int(c.embedding_dim),
+        "hidden": int(getattr(c, "ffn_hidden", 0) or getattr(c, "hidden_dim", 0)),
+        "blocks": int(getattr(c, "num_blocks", 0) or getattr(c, "num_layers", 0)),
+        "heads": int(getattr(c, "num_heads", 1)),
+    }

@@ -8,8 +8,9 @@ the packed train bitset says is not a positive: shape-static and free of
 host round trips. Random numbers come from a `torch.Generator` on the
 device, so the streams differ from JAX's for the same seed; the tests
 hold both packages to the same contract instead. `sample_triplets_python`
-is the numpy fallback, identical to the JAX package's. The native host
-sampler is ported when a slice needs it (ROADMAP.md, queue A)."""
+is the numpy fallback, identical to the JAX package's, and
+`sample_triplets_host` the host dispatch between it and the native C++
+sampler (`gsrs_tpu_torch.native`)."""
 
 from __future__ import annotations
 
@@ -154,3 +155,23 @@ def sample_triplets_python(
                 break
         rows.append((u, pos, neg))
     return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+
+
+def sample_triplets_host(
+    data: InteractionData, num_samples: int, seed: int = 2020
+) -> np.ndarray:
+    """Host-side sampling with the reference's dispatch: the native C++
+    sampler when the host compiler built it, else `sample_triplets_python`
+    → (S, 3) int64 rows [user, pos, neg]. The native path is the
+    reference C++'s round robin over the users, the Python path its
+    uniform users."""
+    from gsrs_tpu_torch.native import load_native_sampler
+
+    native = load_native_sampler()
+    if native is not None:
+        native.seed(seed)
+        net = data.user_item_net
+        # real catalog only: padded phantom ids are not valid negatives
+        return native.sample_negative(data.n_users, data.real_m_items or data.m_items,
+                                      num_samples, net.indptr, net.indices, neg_num=1)
+    return sample_triplets_python(np.random.default_rng(seed), data, num_samples)

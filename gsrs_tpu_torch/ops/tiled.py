@@ -41,7 +41,6 @@ tensors; `TiledGraph.to` moves them to the device.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
@@ -50,6 +49,7 @@ import torch
 
 from gsrs_tpu_torch.ops.ell import EllGraph, EllSide, _apply_side, _build_side
 from gsrs_tpu_torch.ops.hashdrop import HashDrop, hash_keep
+from gsrs_tpu_torch.ops.linalg import fp32_reduction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,24 +278,10 @@ def tiled_masks(tg: TiledGraph, drop: Optional[HashDrop]):
             _direction_mask(tg.item_from_user, drop, False))
 
 
-@contextlib.contextmanager
-def _fp32_reduction():
-    """cuBLAS may add a bf16 product's split-K partials in bf16 unless
-    told not to (PyTorch allows it by default); JAX's product is rounded
-    to bf16 once, from an fp32 sum."""
-    matmul = torch.backends.cuda.matmul
-    allowed = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = allowed
-
-
 def _hub_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The grouped product ``torch.bmm(a, b)``, summed in fp32 and rounded
     once to the inputs' dtype."""
-    with _fp32_reduction():
+    with fp32_reduction():
         return torch.bmm(a, b)
 
 

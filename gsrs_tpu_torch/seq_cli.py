@@ -1,0 +1,102 @@
+"""Command-line training of the sequential family (port of
+`gsrs_tpu.seq_cli`): SASRec, GRU4Rec and BERT4Rec.
+
+    python -m gsrs_tpu_torch.seq_cli --dataset gowalla --model sasrec --epochs 50
+    python -m gsrs_tpu_torch.seq_cli --synthetic --model gru4rec
+
+The JAX CLI's flags, names and defaults. Sequences come from each user's
+interactions in file order (leave-last-item-out); metrics are HR@k
+(recall with one ground-truth item) and NDCG@k over the full catalog with
+the history masked. Runs on ``cuda:0`` and raises when there is no card;
+`main`'s ``device`` keyword lets a caller (the tests) ask for the CPU. A
+mesh (``--data_axis``/``--model_axis`` > 1) raises `NotImplementedError`
+naming its ROADMAP.md item (A7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional
+
+from gsrs_tpu_torch.device import DeviceLike
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="gsrs_tpu_torch.seq_cli")
+    p.add_argument("--model", choices=["sasrec", "gru4rec", "bert4rec"], default="sasrec")
+    p.add_argument("--dataset", type=str, default="gowalla")
+    p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--synthetic", action="store_true", help="markov synthetic data")
+    p.add_argument("--max_len", type=int, default=50)
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--dim", type=int, default=64)
+    p.add_argument("--hidden", type=int, default=64)
+    p.add_argument("--blocks", type=int, default=2, help="attention blocks / GRU layers")
+    p.add_argument("--heads", type=int, default=1)
+    p.add_argument("--dropout", type=float, default=0.2)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--decay", type=float, default=0.0)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--eval_every", type=int, default=10)
+    p.add_argument("--topks", type=str, default="[10,20]")
+    p.add_argument("--seed", type=int, default=2020)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--data_axis", type=int, default=1)
+    p.add_argument("--model_axis", type=int, default=1)
+    p.add_argument("--tensorboard", type=int, default=0)
+    p.add_argument("--comment", type=str, default="")
+    return p
+
+
+def main(argv: Optional[list] = None, device: DeviceLike = None):
+    """Train as the flags say → (the `SeqTrainer`, the final
+    `SeqTrainState`); the trainer's model holds the final parameters.
+    ``device`` defaults to ``cuda:0``."""
+    args = build_parser().parse_args(argv)
+    if args.data_axis * args.model_axis > 1:
+        raise NotImplementedError(
+            f"--data_axis {args.data_axis} --model_axis {args.model_axis}: meshes are not "
+            "ported yet (ROADMAP.md A7, parallel/)")
+
+    from gsrs_tpu_torch.config import topks_from_string
+    from gsrs_tpu_torch.data.sequences import (
+        sequences_from_interactions, synthetic_markov_sequences,
+    )
+    from gsrs_tpu_torch.device import resolve_device
+    from gsrs_tpu_torch.models.registry import build_seq_model
+    from gsrs_tpu_torch.train.seq_trainer import SeqTrainer
+
+    device = resolve_device(device)
+    if args.synthetic:
+        seq_data = synthetic_markov_sequences(max_len=args.max_len, seed=args.seed)
+    else:
+        from gsrs_tpu_torch.data.dataset import load_dataset, load_lastfm
+
+        data_root = args.data_root or os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+        ddir = os.path.join(data_root, args.dataset)
+        if args.dataset == "lastfm":  # the reference-shipped format, no train.txt
+            data = load_lastfm(ddir)
+        else:
+            data = load_dataset(ddir, name=args.dataset)
+        seq_data = sequences_from_interactions(data, max_len=args.max_len)
+    print(f"[seq] {seq_data.name}: {len(seq_data.train_seqs)} sequences, "
+          f"{seq_data.m_items} items, max_len {seq_data.max_len}")
+
+    model = build_seq_model(args.model, m_items=seq_data.m_items, max_len=args.max_len,
+                            dim=args.dim, hidden=args.hidden, blocks=args.blocks,
+                            heads=args.heads, dropout=args.dropout, bf16=args.bf16,
+                            device=device)
+    trainer = SeqTrainer(model, seq_data, batch_size=args.batch, lr=args.lr, decay=args.decay,
+                         seed=args.seed, topks=topks_from_string(args.topks), device=device)
+    state = trainer.fit(epochs=args.epochs, checkpoint_dir=args.checkpoint_dir,
+                        eval_every=args.eval_every, resume=args.resume,
+                        tensorboard=bool(args.tensorboard), comment=args.comment)
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,343 @@
+"""Trainer and evaluator of the sequential family (port of
+`gsrs_tpu.train.seq_trainer`).
+
+Training: the epoch's sequences, padded to a whole number of batches with
+all-PAD rows, in one permutation a epoch; per step the shifted input, the
+next item as the positive, a uniform negative over the real ids (0 where
+the positive is PAD), the model's dropout masks (and BERT4Rec's cloze
+corruption), the loss plus ``decay · reg``, and Adam at a constant
+learning rate (`train.optim.ScheduledAdam`, as ``optax.adam(lr)``). The
+draws of a step are made apart from the loss (`SeqTrainer.draw_step`)
+from a `torch.Generator` seeded from (seed, epoch, step), the
+permutation's from (seed, epoch): a run resumed at epoch e equals one
+that never stopped, bit for bit, and tests can hand the port JAX's draws
+(`run_steps`). Parameters live in the model and are updated in place.
+
+Eval (leave-last-item-out; HR@k is recall@k with one ground-truth item):
+per padded batch of ``eval_batch`` users, the model's query, then the
+whole catalog scored with the history masked by the CUDA kernel of
+`gsrs_tpu_torch.ops.scoring` (K1) on the real item rows, the exact top
+``max(topks)`` and the metrics summed on the device; the host reads the
+sums once. `fit` is the JAX trainer's loop: an eval before every
+``eval_every``-th epoch and a final one, best-NDCG checkpoints, ``last``
+every epoch, CSV and TensorBoard logs, ``model_meta.json`` and resume.
+Meshes are ROADMAP.md A7.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gsrs_tpu_torch.data.sequences import SequenceData
+from gsrs_tpu_torch.device import DeviceLike, resolve_device
+from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
+from gsrs_tpu_torch.ops.linalg import fp32_reduction
+from gsrs_tpu_torch.ops.metrics import batch_metrics, topk_labels
+from gsrs_tpu_torch.ops.scoring import masked_scores
+from gsrs_tpu_torch.ops.topk import topk_scores
+from gsrs_tpu_torch.train.optim import (
+    ScheduledAdam, load_optimizer_state, optimizer_state_dict,
+)
+from gsrs_tpu_torch.train.trainer import stream_seed
+
+_PERM, _STEP = 0, 1  # the random streams of an epoch
+
+
+@dataclasses.dataclass
+class SeqTrainState:
+    """The model's parameters (live, by the JAX package's names), the
+    optimizer state and the epoch count."""
+
+    params: Dict[str, torch.nn.Parameter]
+    opt_state: Any
+    epoch: int = 0
+
+
+class StepDraws(NamedTuple):
+    """One step's draws: the negatives (B, L) and the model's own
+    (`model.draw`: dropout keep masks, or BERT4Rec's `ClozeDraws`)."""
+
+    neg: torch.Tensor
+    model: Any
+
+
+def to_device(tree: Any, device: torch.device) -> Any:
+    """``tree`` (tensors in tuples, named tuples, lists; None) with every
+    tensor on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple):
+        items = [to_device(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree
+
+
+def _catalog_bitset(users: np.ndarray, shifted_items: np.ndarray, n_users: int,
+                    m_items: int, device: torch.device) -> torch.Tensor:
+    """The (n_users, W) int32 bitset of shifted ids, unshifted to real ids."""
+    return bitset_to_tensor(build_bitset(users.astype(np.int64),
+                                         shifted_items.astype(np.int64) - 1, n_users, m_items),
+                            device)
+
+
+class SeqTrainer:
+    """Trains ``model`` (SASRec, GRU4Rec or BERT4Rec on ``device``, default
+    ``cuda:0``) on ``data``."""
+
+    def __init__(
+        self,
+        model,
+        data: SequenceData,
+        batch_size: int = 128,
+        lr: float = 1e-3,
+        decay: float = 0.0,
+        seed: int = 2020,
+        topks: Tuple[int, ...] = (10, 20),
+        eval_batch: int = 256,
+        mesh: Optional[Any] = None,
+        device: DeviceLike = None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("a sharded sequential trainer (mesh) is not ported yet "
+                                      "(ROADMAP.md A7, parallel/seq_sharding.py)")
+        self.device = dev = resolve_device(device)
+        if model.item_emb.device != dev:
+            raise ValueError(f"the model is on {model.item_emb.device}, the trainer on {dev}")
+        self.model = model
+        self.data = data
+        self.batch_size = batch_size
+        self.decay = decay
+        self.seed = seed
+        self.topks = tuple(topks)
+        self.eval_batch = eval_batch
+        self.optimizer = ScheduledAdam(lambda count: float(np.float32(lr)))
+
+        L = data.max_len
+        n = len(data.train_seqs)
+        self.n_train = n
+        pad = -(-n // batch_size) * batch_size
+        seqs = np.zeros((pad, L), np.int64)
+        seqs[:n] = data.train_seqs
+        self.train_seqs = torch.from_numpy(seqs).to(dev)
+        self.steps_per_epoch = pad // batch_size
+
+        hist_u = [np.full(len(v), u, np.int64) for u, v in data.user_hist_sets.items()]
+        hist_i = [np.asarray(v, np.int64) for v in data.user_hist_sets.values()]
+        cat = (lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64))
+        self.hist_bitset = _catalog_bitset(cat(hist_u), cat(hist_i), data.n_users,
+                                           data.m_items, dev)
+        self.target_bitset = _catalog_bitset(data.eval_users, data.eval_targets, data.n_users,
+                                             data.m_items, dev)
+
+        self.n_eval = n_eval = len(data.eval_users)
+        B = eval_batch
+        n_b = -(-n_eval // B)
+        e_seqs = np.zeros((n_b * B, L), np.int64)
+        e_seqs[:n_eval] = data.eval_seqs
+        users = np.zeros(n_b * B, np.int64)
+        users[:n_eval] = data.eval_users
+        weights = np.zeros(n_b * B, np.float32)
+        weights[:n_eval] = 1.0
+        self._eval_seqs = torch.from_numpy(e_seqs.reshape(n_b, B, L)).to(dev)
+        self._eval_users = torch.from_numpy(users.reshape(n_b, B)).to(dev)
+        self._eval_weights = torch.from_numpy(weights.reshape(n_b, B)).to(dev)
+
+    # ------------------------------------------------------------------ init
+    def init_state(self) -> SeqTrainState:
+        """The model's parameters drawn again from ``seed``, and a fresh
+        optimizer state."""
+        self.model.init_params(torch.Generator().manual_seed(self.seed))
+        params = dict(self.model.named_parameters())
+        return SeqTrainState(params, self.optimizer.init(params))
+
+    # ----------------------------------------------------------------- train
+    def draw_step(self, seqs: torch.Tensor, generator: torch.Generator) -> StepDraws:
+        """One step's draws for the (B, L) batch ``seqs``, on the
+        generator's device: negatives uniform in [1, m] (0 where the
+        positive is PAD), then the model's."""
+        neg = torch.randint(1, self.data.m_items + 1, seqs.shape, generator=generator,
+                            device=generator.device)
+        pos = seqs.to(generator.device)
+        neg = torch.where(pos == 0, 0, neg)
+        return StepDraws(neg, self.model.draw(generator, pos))
+
+    def _step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws):
+        inp = torch.zeros_like(seqs)
+        inp[:, 1:] = seqs[:, :-1]
+        draws = to_device(draws, self.device)
+        with fp32_reduction():  # the backward's bf16 products too
+            loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model)
+            total = loss + self.decay * aux["reg"]
+            total.backward()
+        opt_state = self.optimizer.step(state.params, state.opt_state)
+        return dataclasses.replace(state, opt_state=opt_state), total.detach()
+
+    def run_steps(self, state: SeqTrainState, batches, draws: Sequence[StepDraws]):
+        """One optimizer step per (B, L) batch of ``batches`` with the
+        given draws → (state, the per-step losses ``loss + decay · reg``
+        on the device)."""
+        losses = []
+        for seqs, d in zip(torch.as_tensor(batches, device=self.device), draws):
+            state, loss = self._step(state, seqs.long(), d)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    def epoch_batches(self, epoch: int) -> torch.Tensor:
+        """The epoch's (steps, B, L) batches: one permutation of the
+        padded sequences."""
+        g = torch.Generator(self.device).manual_seed(stream_seed(self.seed, epoch, 0, _PERM))
+        perm = torch.randperm(self.train_seqs.shape[0], generator=g, device=self.device)
+        return self.train_seqs[perm].view(-1, self.batch_size, self.data.max_len)
+
+    def step_generator(self, epoch: int, step: int) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(
+            stream_seed(self.seed, epoch, step, _STEP))
+
+    def train_epoch(self, state: SeqTrainState) -> Tuple[SeqTrainState, float]:
+        """One epoch → (state, the mean step loss, read once)."""
+        losses = []
+        for i, seqs in enumerate(self.epoch_batches(state.epoch)):
+            draws = self.draw_step(seqs, self.step_generator(state.epoch, i))
+            state, loss = self._step(state, seqs, draws)
+            losses.append(loss)
+        mean = float(torch.stack(losses).mean())
+        return dataclasses.replace(state, epoch=state.epoch + 1), mean
+
+    # ------------------------------------------------------------------ eval
+    @torch.no_grad()
+    def evaluate(self, state: Optional[SeqTrainState] = None) -> Dict[str, float]:
+        """Mean HR/recall, precision and NDCG at each k over the eval users,
+        of the model's current parameters (``state.params`` are those)."""
+        max_k = max(self.topks)
+        items = self.model.catalog()
+        totals: Dict[str, torch.Tensor] = {}
+        with fp32_reduction():
+            for seqs, users, weights in zip(self._eval_seqs, self._eval_users,
+                                            self._eval_weights):
+                q = self.model.user_representations(seqs).contiguous()
+                scores = masked_scores(q, items, self.hist_bitset.index_select(0, users))
+                labels = topk_labels(topk_scores(scores, max_k)[1], self.target_bitset, users)
+                gt = torch.ones(seqs.shape[0], device=self.device)
+                for k, v in batch_metrics(labels, gt, weights, self.topks).items():
+                    totals[k] = totals[k] + v if k in totals else v
+        if not totals:
+            return {}
+        names = list(totals)
+        values = torch.stack([totals[k] for k in names]).cpu().tolist()
+        return {k: v / max(self.n_eval, 1) for k, v in zip(names, values)}
+
+    # ------------------------------------------------------------------- fit
+    def fit(
+        self,
+        state: Optional[SeqTrainState] = None,
+        epochs: int = 100,
+        checkpoint_dir: Optional[str] = None,
+        eval_every: int = 10,
+        resume: bool = False,
+        verbose: bool = True,
+        tensorboard: bool = False,
+        comment: str = "",
+    ) -> SeqTrainState:
+        """The JAX trainer's loop: CSV and optional TensorBoard logs (under
+        ``checkpoint_dir``), ``model_meta.json``, resume from the newest
+        checkpoint, an eval before every ``eval_every``-th epoch with a
+        best-NDCG checkpoint on improvement, ``last`` after every epoch,
+        and a final eval of the last state. Without ``checkpoint_dir`` it
+        is the epoch loop with its evals."""
+        from gsrs_tpu_torch.models.registry import seq_model_meta
+        from gsrs_tpu_torch.train.checkpoint import CheckpointManager
+        from gsrs_tpu_torch.train.logging import (
+            TensorboardWriter, make_train_csv, make_valid_csv,
+        )
+
+        state = state or self.init_state()
+        ckpt = train_csv = valid_csv = None
+        tb = TensorboardWriter(checkpoint_dir if (tensorboard and checkpoint_dir) else None,
+                               comment or f"seq-{self.data.name}")
+        if checkpoint_dir:
+            ckpt = CheckpointManager(checkpoint_dir)
+            train_csv = make_train_csv(checkpoint_dir)
+            valid_csv = make_valid_csv(checkpoint_dir, self.topks)
+            with open(os.path.join(checkpoint_dir, "model_meta.json"), "w") as f:
+                json.dump(seq_model_meta(self.model), f)
+            if resume:
+                path = ckpt.resolve_resume_path(None)
+                if path is not None:
+                    state = self.restore(state, ckpt.restore(path))
+                    if verbose:
+                        print(f"[resume] restored from {path} (epoch {state.epoch})")
+
+        best_ndcg = 0.0
+        main_k = max(self.topks)
+        last_eval = -1
+        try:
+            while state.epoch < epochs:
+                if state.epoch % eval_every == 0:
+                    last_eval = state.epoch
+                    metrics = self.evaluate(state)
+                    self._log_eval(state, metrics, valid_csv, verbose, tb)
+                    if ckpt and metrics.get(f"ndcg@{main_k}", 0.0) > best_ndcg:
+                        best_ndcg = metrics[f"ndcg@{main_k}"]
+                        ckpt.save_best(self.ckpt_state(state), state.epoch)
+                t0 = time.time()
+                state, loss = self.train_epoch(state)
+                dt = time.time() - t0
+                tb.scalar("Train/loss", loss, state.epoch)
+                if train_csv:
+                    train_csv.append({"epoch": state.epoch, "time_sec": f"{dt:.3f}",
+                                      "train_loss": f"{loss:.6f}", "lr": ""})
+                if verbose:
+                    print(f"[epoch {state.epoch}/{epochs}] loss={loss:.5f} ({dt:.2f}s)")
+                if ckpt:
+                    ckpt.save_last(self.ckpt_state(state))
+            if last_eval != state.epoch:
+                metrics = self.evaluate(state)
+                self._log_eval(state, metrics, valid_csv, verbose, tb)
+                if ckpt and metrics.get(f"ndcg@{main_k}", 0.0) > best_ndcg:
+                    ckpt.save_best(self.ckpt_state(state), state.epoch)
+        finally:
+            tb.close()
+        return state
+
+    # ------------------------------------------------------------ checkpoint
+    def ckpt_state(self, state: SeqTrainState) -> Dict[str, Any]:
+        """A checkpoint: {params (by name), opt_state, epoch}."""
+        return {"params": {k: p.detach() for k, p in state.params.items()},
+                "opt_state": optimizer_state_dict(state.opt_state, state.params),
+                "epoch": int(state.epoch)}
+
+    def restore(self, state: SeqTrainState, saved: Dict[str, Any]) -> SeqTrainState:
+        """Copy a checkpoint's parameters into the live ones and take its
+        optimizer state and epoch."""
+        if set(saved["params"]) != set(state.params):
+            raise ValueError(f"the checkpoint's parameters {sorted(saved['params'])} differ "
+                             f"from the model's {sorted(state.params)}")
+        with torch.no_grad():
+            for name, p in state.params.items():
+                src = saved["params"][name]
+                if src.shape != p.shape:
+                    raise ValueError(f"{name}: checkpoint {tuple(src.shape)}, model "
+                                     f"{tuple(p.shape)}")
+                p.copy_(src)
+        opt_state = load_optimizer_state(self.optimizer, state.params, saved["opt_state"])
+        return SeqTrainState(state.params, opt_state, int(saved["epoch"]))
+
+    def _log_eval(self, state, metrics, valid_csv, verbose, tb) -> None:
+        tb.eval_metrics(metrics, self.topks, state.epoch)
+        if valid_csv:
+            row = {"epoch": state.epoch, "time_sec": "", "lr": ""}
+            row.update({k: f"{v:.6f}" for k, v in metrics.items()})
+            valid_csv.append(row)
+        if verbose:
+            print(f"[eval e{state.epoch}] "
+                  + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics.items())))
+

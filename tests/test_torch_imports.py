@@ -45,7 +45,11 @@ def test_port_imports_nothing_of_jax():
                  "train.trainer", "ops.hybrid", "ops.reorder", "ops.hashdrop", "ops.tiled",
                  "bench", "cli", "__main__", "utils.seeding", "data.i2i", "train.checkpoint",
                  "train.logging", "ops.topk", "data.dataset", "ops.linalg", "models.mf",
-                 "models.ngcf", "models.xsimgcl", "models.ultragcn", "models.registry"):
+                 "models.ngcf", "models.xsimgcl", "models.ultragcn", "models.registry",
+                 "data.sequences", "models._transformer", "models.sasrec", "models.gru4rec",
+                 "models.bert4rec", "train.seq_trainer", "seq_cli", "serve_seq", "utils.timer",
+                 "utils.batching", "data.movielens", "data.instacart", "native",
+                 "native.build"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"
