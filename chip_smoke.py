@@ -111,7 +111,24 @@
    request p50 at 1 and 64 sessions and K1's time at those shapes; the
    learning check (SASRec on ``--synthetic`` Markov data: recall@10 above
    twice its start and above 0.2); and the native host sampler's build.
-12. Times each kernel by its device time (the kernels' own time in
+12. Mesh phase: the (data, model) mesh of ``gsrs_tpu_torch.parallel`` on
+   the card, at full width, fp32, on the ELL layout: four gloo ranks on
+   the one card form a 2 × 2 mesh (NCCL refuses two ranks on one
+   device); in every rank `cli.main` trains LightGCN for 10 steps of 2048
+   (fused Adam kernel, an eval before and after, a checkpoint) and resumes
+   for one more step; the same 3 batches through `make_train_step` and
+   `make_shard_map_train_step` from seeded parameters, a sharded eval and
+   4 requests × 256 users of the sharded Retriever, each against the
+   single card on the same parameters and batches (losses, parameters,
+   metrics, top-20), with a control (the model-axis copies not divided
+   out: the loss doubles) that must fail the loss limit; SASRec through
+   `seq_cli` on the same mesh against the card. Every rank must launch
+   K4, K1 and K3. Readings: ms a mesh step, its collectives' wall time
+   (gloo: host-staged, not NVLink), each rank's K4 side and K1 shard
+   against the single card's whole tables. Then NCCL: the CLI across
+   min(cards, 4) cards when there are two or more, else a one-rank NCCL
+   group running the mesh step on this card; the line says which.
+13. Times each kernel by its device time (the kernels' own time in
    torch.profiler's device-side events over a window of launches, after a
    warm-up; CUDA events around the same calls are logged beside it where
    the two differ by more than 10%) beside its bound, its plain version
@@ -2733,6 +2750,414 @@ def seq_phase(dev, out_dir: str) -> dict:
                 launches={"masked_scores": k1})
 
 
+# ---------------------------------------------------------------- mesh phase
+# A 2 x 2 mesh of four gloo ranks on the one card (NCCL refuses two ranks on one
+# device): LightGCN on the ELL layout in fp32 at full width through `cli.main` in
+# every rank, the same batches through both step builders, a sharded eval and the
+# sharded Retriever, each against the single card on the same parameters and batches;
+# then SASRec through `seq_cli.main` on the same mesh against the single card; then NCCL.
+MESH_AXES = (2, 2)
+MESH_BATCH, MESH_STEPS, MESH_CHECK_STEPS = 2048, 10, 3
+# mesh against one card: each limit sits between the largest sound reading and the
+# control (a step that does not divide out the model-axis copies doubles the loss: 1.0).
+# First chip run (NVIDIA H100 80GB HBM3, 700 W): losses 8.6e-8 of their size, parameters
+# 6.0e-8, eval metrics equal, SASRec's CSV losses (6 decimals) equal, its metrics 3.4e-5
+MESH_LIMITS = dict(loss_rtol=1e-5, param_atol=1e-5, metric_atol=1e-6,
+                   seq_loss_rtol=1e-5, seq_metric_atol=2e-4)
+MESH_SEQ_ARGS = ["--model", "sasrec", "--epochs", "1", "--eval_every", "1"]
+
+
+def mesh_cli_argv(root: str, ckpt: str, epochs: int, samples: int, resume: bool = False,
+                  backend: str = "gloo") -> list:
+    argv = ["--data_root", root, "--dataset", CLI_DATASET, "--epochs", str(epochs),
+            "--epoch_samples", str(samples), "--bpr_batch", str(MESH_BATCH), "--eval_every",
+            "1", "--fused_adam", "pallas", "--tensorboard", "0", "--checkpoint_dir", ckpt,
+            "--data_axis", str(MESH_AXES[0]), "--model_axis", str(MESH_AXES[1]),
+            "--dist_backend", backend]
+    return argv + (["--resume"] if resume else [])
+
+
+def padded_model(root: str, device, model_axis: int):
+    """The model and data `cli.main` builds for the mesh CLI run (the
+    stand-in padded to the model axis), here on ``device`` → (cfg, data,
+    model)."""
+    from gsrs_tpu_torch import cli
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.data.dataset import load_dataset, pad_nodes_to_multiple
+    from gsrs_tpu_torch.models.registry import build_model
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        mesh_cli_argv(root, os.devnull, 1, MESH_BATCH)))
+    data = pad_nodes_to_multiple(load_dataset(cfg.data.dataset_dir, name=CLI_DATASET),
+                                 model_axis)
+    graph = build_graph(data, edge_pad_multiple=cfg.data.edge_pad_multiple)
+    model = build_model(cfg.model, graph, None, cli.layout_from_interactions(cfg.model, data),
+                        device=device)
+    return cfg, data, model
+
+
+def mesh_steps(model, cfg, mesh, builder, batches, generator_seed: int = SEED):
+    """``builder``'s step from the seeded parameters over ``batches`` →
+    (losses, the whole parameters after them, the step function and its
+    state for more steps)."""
+    from gsrs_tpu_torch.parallel.collectives import all_gather_rows
+    from gsrs_tpu_torch.parallel.sharding import GraphShardings
+    from gsrs_tpu_torch.train.optim import make_optimizer
+
+    sh = GraphShardings(mesh)
+    if mesh.size > 1:
+        sh.init_params(model, torch.Generator().manual_seed(generator_seed))
+    else:
+        model.init_params(torch.Generator().manual_seed(generator_seed))
+    params = dict(model.named_parameters())
+    optimizer, _ = make_optimizer(cfg.train, 1)
+    opt_state = optimizer.init(params)
+    step = builder(model, optimizer, mesh, cfg.train.decay)(params, opt_state)
+    losses = []
+    for users, pos, neg in batches:
+        params, opt_state, loss = step(params, opt_state, *(torch.as_tensor(b, device=mesh.device)
+                                                            for b in (users, pos, neg)))
+        losses.append(float(loss))
+    with torch.no_grad():
+        whole = {k: (all_gather_rows(p.detach(), mesh) if k.endswith("_emb") else p.detach())
+                 .cpu() for k, p in params.items()}
+    return losses, whole, (step, params, opt_state)
+
+
+class CollectiveClock:
+    """Wall time of every torch.distributed collective the mesh code calls,
+    each after a device synchronize (so pending kernels are not counted):
+    gloo stages CUDA tensors through host memory, so these are host-staged
+    times, not NVLink's."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter", "broadcast_object_list")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.ms, self.calls, self.saved = dist, {}, {}, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(self.dist, name)
+            self.saved[name] = fn
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_name] = self.ms.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return out
+
+            setattr(self.dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _one_rank_at_a_time(mesh, fn):
+    """``fn()`` on each rank in turn while the others wait (four ranks share
+    the card: a kernel timed while the others run would count their work)
+    → this rank's result."""
+    from gsrs_tpu_torch.parallel.collectives import barrier
+
+    out = None
+    for r in range(mesh.size):
+        barrier(mesh)
+        if mesh.rank == r:
+            out = fn()
+            torch.cuda.synchronize()
+    barrier(mesh)
+    return out
+
+
+def _mesh_rank(device, root: str, batches, seq_root: str) -> dict:
+    """One rank of the mesh phase (see `mesh_phase`)."""
+    from unittest import mock
+
+    from gsrs_tpu_torch import cli, seq_cli
+    from gsrs_tpu_torch.ops.bitset import bitset_columns
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+    from gsrs_tpu_torch.ops.scoring import masked_scores
+    from gsrs_tpu_torch.parallel import collectives, dist_train
+    from gsrs_tpu_torch.parallel.dist_train import make_train_step
+    from gsrs_tpu_torch.parallel.shard_map_train import make_shard_map_train_step
+    from gsrs_tpu_torch.parallel.sharding import catalog_range
+    from gsrs_tpu_torch.serve import retriever_from_model
+
+    out = {}
+    ckpt = os.path.join(root, "mesh_ckpt")
+    # the CLI at full width: MESH_STEPS steps, an eval before and after, a checkpoint
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, first_state = cli.main(mesh_cli_argv(root, ckpt, 1, MESH_STEPS * MESH_BATCH), device)
+    torch.cuda.synchronize()
+    out["cli"] = dict(wall_s=time.perf_counter() - t0, epoch=first_state.epoch,
+                      launches=read_counts(), n_users=first.data.n_users,
+                      m_items=first.data.m_items)
+    zero_counts()
+    trainer, state = cli.main(mesh_cli_argv(root, ckpt, 2, MESH_BATCH, resume=True), device)
+    out["resume"] = dict(epoch=state.epoch, launches=read_counts())
+    # the resumed run against the first run's trainer taking that epoch in memory
+    first.epoch_samples = MESH_BATCH
+    first_state, _ = first.train_epoch(first_state)
+    kept, resumed = (t._ckpt_state(s)["params"] for t, s in ((first, first_state),
+                                                             (trainer, state)))
+    out["resume_max_diff"] = max(float((kept[k] - resumed[k]).abs().max()) for k in kept)
+    del first, first_state, kept, resumed
+    mesh, model, cfg = trainer.mesh, trainer.model, trainer.cfg
+    # the same batches through both step builders, from the seeded parameters; first the
+    # control, whose step does not divide out the model-axis copies
+    zero_counts()
+    with mock.patch.object(dist_train, "local_share", lambda loss, mesh: loss / mesh.data_size):
+        out["control_losses"] = mesh_steps(model, cfg, mesh, make_train_step, batches[:1])[0]
+    for name, builder in (("gspmd", make_train_step), ("shard_map", make_shard_map_train_step)):
+        losses, whole, fn = mesh_steps(model, cfg, mesh, builder, batches)
+        out[name] = dict(losses=losses, params=whole if mesh.is_primary else None)
+    out["steps_launches"] = read_counts()
+    # eval and serving on the parameters of the shard_map steps
+    zero_counts()
+    t0 = time.perf_counter()
+    out["metrics"] = trainer.evaluate(state)
+    out["eval_s"] = time.perf_counter() - t0
+    retriever = retriever_from_model(model, trainer.data, batch_size=BATCH, device=device,
+                                     mesh=mesh)
+    users = np.arange(N_REQUESTS * BATCH) * 7 % retriever.n_users
+    out["top"] = retriever.recommend(users, k=K)
+    out["eval_serve_launches"] = read_counts()
+    # readings: the step's wall time, its collectives' share, each rank's kernels
+    step, params, opt_state = fn
+    users_b, pos_b, neg_b = (torch.as_tensor(b, device=device) for b in batches[0])
+
+    def steps(n):
+        nonlocal params, opt_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            params, opt_state, _ = step(params, opt_state, users_b, pos_b, neg_b)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    steps(2)
+    out["step_ms"] = steps(5)
+    with CollectiveClock() as clock:
+        out["step_ms_clocked"] = steps(5)
+    out["collective_ms"] = {k: v / 5 for k, v in clock.ms.items()}
+    out["collective_calls"] = {k: v // 5 for k, v in clock.calls.items()}
+    x_items = collectives.all_gather_rows(model.item_emb.detach(), mesh).contiguous()
+    table = model.ell.by_user.table
+    buf = x_items.new_empty(table.n_rows + 1, x_items.shape[1])
+    lo, hi = catalog_range(trainer.data.m_items, mesh)
+    shard = x_items[lo:hi].contiguous()
+    u = x_items.new_empty(MESH_BATCH, x_items.shape[1]).normal_()
+    bits = trainer.sampler_state.train_bitset
+    rows = bitset_columns(bits[torch.arange(MESH_BATCH, device=device) % bits.shape[0]], lo, hi)
+    out["k4_user_side"] = _one_rank_at_a_time(mesh, lambda: kernel_ms(
+        lambda: gather_reduce(table, x_items, None, out=buf), 50, f"rank {mesh.rank} K4"))
+    out["k1_shard"] = _one_rank_at_a_time(mesh, lambda: kernel_ms(
+        lambda: masked_scores(u, shard, rows), 50, f"rank {mesh.rank} K1"))
+    out["local_slots"] = sum(c.numel() for c, _, _ in table.buckets)
+    # SASRec through seq_cli on the same mesh
+    zero_counts()
+    t0 = time.perf_counter()
+    seq_tr, seq_state = seq_cli.main(["--data_root", root, "--dataset", CLI_DATASET,
+                                      "--checkpoint_dir", os.path.join(seq_root, "mesh"),
+                                      "--data_axis", str(MESH_AXES[0]), "--model_axis",
+                                      str(MESH_AXES[1]), "--dist_backend", "gloo"]
+                                     + MESH_SEQ_ARGS, device)
+    torch.cuda.synchronize()
+    out["seq"] = dict(wall_s=time.perf_counter() - t0, launches=read_counts(),
+                      rows=csv_rows(os.path.join(seq_root, "mesh", "valid_epoch_metrics.csv"))
+                      if seq_tr.mesh.is_primary else None,
+                      losses=csv_rows(os.path.join(seq_root, "mesh", "train_epoch_metrics.csv"))
+                      if seq_tr.mesh.is_primary else None)
+    return out
+
+
+def _nccl_rank(device, root: str, batches) -> dict:
+    """One NCCL rank on a 1 x 1 mesh whose axes are given the one-rank
+    process group, so that NCCL's set-up and every collective of the mesh
+    step run on the card."""
+    import torch.distributed as dist
+
+    from gsrs_tpu_torch.parallel.dist_train import make_train_step
+    from gsrs_tpu_torch.parallel.mesh import Mesh
+    from gsrs_tpu_torch.parallel.sharding import GraphShardings
+
+    cfg, data, model = padded_model(root, device, MESH_AXES[1])
+    world = dist.group.WORLD
+    mesh = Mesh(1, 1, 0, device, dist.get_backend(), world, world, world)
+    GraphShardings(mesh).place_model(model)
+    zero_counts()
+    losses, whole, _ = mesh_steps(model, cfg, mesh, make_train_step, batches)
+    return dict(backend=dist.get_backend(), losses=losses, params=whole, launches=read_counts())
+
+
+def mesh_phase(dev, out_dir: str) -> dict:
+    """The (data, model) mesh on the card: builds nothing (the kernels are
+    built), starts the four gloo ranks of `_mesh_rank` and checks them
+    against the single card on the same parameters and batches, then NCCL
+    (`_nccl_rank` on one card, or the CLI across cards)."""
+    import shutil
+
+    from gsrs_tpu_torch import cli, seq_cli
+    from gsrs_tpu_torch.ops.sampling import make_sampler_state, sample_triplets
+    from gsrs_tpu_torch.parallel.dist_train import make_train_step
+    from gsrs_tpu_torch.parallel.launch import spawn
+    from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+    from gsrs_tpu_torch.serve import retriever_from_model
+    from gsrs_tpu_torch.train.evaluator import Evaluator
+
+    root = out_dir
+    seq_root = os.path.join(root, "mesh_seq")
+    for d in (os.path.join(root, "mesh_ckpt"), seq_root):
+        shutil.rmtree(d, ignore_errors=True)
+    t_phase = time.perf_counter()
+    # the single card on the data the mesh pads: the same batches for both
+    cfg, data, model = padded_model(root, dev, MESH_AXES[1])
+    g = torch.Generator(dev).manual_seed(SEED)
+    state = make_sampler_state(data, dev)
+    batches = [tuple(t.cpu().numpy() for t in sample_triplets(g, state, MESH_BATCH))
+               for _ in range(MESH_CHECK_STEPS)]
+    losses, whole, _ = mesh_steps(model, cfg, single_device_mesh(dev), make_train_step, batches)
+    t0 = time.perf_counter()
+    ranks = spawn(_mesh_rank, MESH_AXES[0] * MESH_AXES[1], root, batches, seq_root,
+                  device_type=dev.type, backend="gloo", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    first = ranks[0]
+    log(f"[mesh] 4 gloo ranks on one card: {spawn_s:.1f} s; CLI {first['cli']['wall_s']:.1f} s "
+        f"for {MESH_STEPS} steps at {MESH_BATCH} and two evals")
+    # every rank launched each kernel of its path
+    for r, out in enumerate(ranks):
+        for name in ("ell_gather_reduce", "masked_scores", "fused_adam"):
+            check(out["cli"]["launches"][name] > 0, f"rank {r} launched no {name} in the CLI run")
+            check(out["resume"]["launches"][name] > 0, f"rank {r}: no {name} in the resume")
+        check(out["seq"]["launches"]["masked_scores"] > 0, f"rank {r}: the seq eval had no K1")
+        check(out["cli"]["epoch"] == 1 and out["resume"]["epoch"] == 2,
+              f"rank {r}: epochs {out['cli']['epoch']}, {out['resume']['epoch']}")
+    check((first["cli"]["n_users"], first["cli"]["m_items"]) == (data.n_users, data.m_items),
+          "the mesh padded its data otherwise")
+    # mesh against the single card, the same parameters and batches
+    lim = MESH_LIMITS
+    readings = {}
+    for name in ("gspmd", "shard_map"):
+        got = first[name]
+        loss_rel = max(abs(a / b - 1) for a, b in zip(got["losses"], losses))
+        param_err = max(float((got["params"][k] - whole[k]).abs().max()) for k in whole)
+        readings[name] = dict(loss_rel=loss_rel, param_max=param_err)
+        check(loss_rel <= lim["loss_rtol"], f"{name}: mesh losses differ by {loss_rel}")
+        check(param_err <= lim["param_atol"], f"{name}: mesh parameters differ by {param_err}")
+        for r, out in enumerate(ranks):
+            check(out[name]["losses"] == got["losses"], f"rank {r}: {name} losses differ")
+    # two runs on one mesh (the builders share their step), and the resume: bitwise where
+    # the backend's sums are (logged), within the limits in any case
+    repeat = max(float((first["gspmd"]["params"][k] - first["shard_map"]["params"][k]).abs().max())
+                 for k in whole)
+    check(repeat <= lim["param_atol"], f"two runs on one mesh differ by {repeat}")
+    resume = max(out["resume_max_diff"] for out in ranks)
+    check(resume <= RESUME_ATOL, f"the mesh resume differs from the run that kept going by {resume}")
+    log(f"[mesh] two runs on one mesh: {'bitwise equal' if repeat == 0 else f'apart by {repeat}'}"
+        f"; the resume: {'bitwise equal' if resume == 0 else f'apart by {resume}'}")
+    control_rel = abs(first["control_losses"][0] / losses[0] - 1)
+    check(control_rel > lim["loss_rtol"], f"the control passed the loss limit ({control_rel})")
+    # eval and serving on the shard_map steps' parameters, on one card
+    model.load_state_dict({k: v.to(dev) for k, v in first["shard_map"]["params"].items()})
+    ev = Evaluator(data, model, cfg.eval, device=dev)
+    metrics = ev.run()
+    metric_err = max(abs(first["metrics"][k] - v) for k, v in metrics.items())
+    check(metric_err <= lim["metric_atol"], f"mesh eval metrics differ by {metric_err}")
+    check(all(out["metrics"] == first["metrics"] for out in ranks), "ranks' metrics differ")
+    retriever = retriever_from_model(model, data, batch_size=BATCH, device=dev)
+    users = np.arange(N_REQUESTS * BATCH) * 7 % retriever.n_users
+    items, scores = retriever.recommend(users, k=K)
+    ids = torch.as_tensor(users, device=dev)
+    plain = retriever._serve_tables[0][ids] @ retriever._serve_tables[1].T
+    check(bool((items >= 0).all()), "a request user has fewer than K unseen items")
+    for r, out in enumerate(ranks):
+        same_topk(out["top"][0], plain, items, f"mesh rank {r} top-{K}")
+    # each rank's K4 side and K1 shard beside the single card's on the whole tables
+    from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+    from gsrs_tpu_torch.ops.scoring import masked_scores
+
+    x_items = model.item_emb.detach().contiguous()
+    table = model.ell.by_user.table
+    buf = x_items.new_empty(table.n_rows + 1, x_items.shape[1])
+    whole_ms = dict(k4_user_side=kernel_ms(lambda: gather_reduce(table, x_items, None, out=buf),
+                                           50, "one card's K4"))
+    u = x_items.new_empty(MESH_BATCH, x_items.shape[1]).normal_()
+    rows = bitset_to_tensor(build_bitset(data.train_users, data.train_items, data.n_users,
+                                         data.m_items)[np.arange(MESH_BATCH) % data.n_users],
+                            dev)
+    whole_ms["k1_catalog"] = kernel_ms(lambda: masked_scores(u, x_items, rows), 50,
+                                       "one card's K1")
+    # the sequential family on the same mesh against the single card
+    one_root = os.path.join(seq_root, "one")
+    seq_tr, _ = seq_cli.main(["--data_root", root, "--dataset", CLI_DATASET, "--checkpoint_dir",
+                              one_root] + MESH_SEQ_ARGS, dev)
+    one_loss = [float(r["train_loss"]) for r in csv_rows(os.path.join(one_root,
+                                                                      "train_epoch_metrics.csv"))]
+    mesh_loss = [float(r["train_loss"]) for r in first["seq"]["losses"]]
+    seq_loss_rel = max(abs(a / b - 1) for a, b in zip(mesh_loss, one_loss))
+    one_rows = csv_rows(os.path.join(one_root, "valid_epoch_metrics.csv"))
+    seq_metric_err = max(abs(float(a[k]) - float(b[k])) for a, b in zip(first["seq"]["rows"],
+                                                                        one_rows)
+                         for k in a if "@" in k)
+    check(seq_loss_rel <= lim["seq_loss_rtol"], f"seq mesh losses differ by {seq_loss_rel}")
+    check(seq_metric_err <= lim["seq_metric_atol"], f"seq mesh metrics differ by {seq_metric_err}")
+    # NCCL: across cards when there are two or more, else a one-rank group on this card
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if cards >= 2:
+        n = min(cards, 4)
+        nccl = dict(mode=f"NCCL across {n} cards")
+        argv = mesh_cli_argv(root, os.path.join(root, "mesh_nccl"), 1,
+                             MESH_STEPS * MESH_BATCH, backend="nccl")
+        argv[argv.index("--data_axis") + 1] = str(n // MESH_AXES[1] if n % 2 == 0 else n)
+        argv[argv.index("--model_axis") + 1] = str(MESH_AXES[1] if n % 2 == 0 else 1)
+        cli.main(argv)
+    else:
+        res = spawn(_nccl_rank, 1, root, batches, device_type=dev.type, backend="nccl",
+                    timeout_s=600)[0]
+        check(res["backend"] == "nccl", f"the one-rank group ran {res['backend']}")
+        nccl_rel = max(abs(a / b - 1) for a, b in zip(res["losses"], losses))
+        nccl_param = max(float((res["params"][k] - whole[k]).abs().max()) for k in whole)
+        check(nccl_rel <= lim["loss_rtol"] and nccl_param <= lim["param_atol"],
+              f"the NCCL 1 x 1 mesh differs from the card by {nccl_rel}, {nccl_param}")
+        check(res["launches"]["ell_gather_reduce"] > 0 and res["launches"]["fused_adam"] > 0,
+              f"the NCCL rank's launches {res['launches']}")
+        nccl = dict(mode="NCCL as a one-rank group on one card", loss_rel=nccl_rel,
+                    param_max=nccl_param)
+    nccl["s"] = time.perf_counter() - t0
+    log(f"[mesh] {nccl['mode']}: {nccl['s']:.1f} s")
+    launches = {name: sum(out[k]["launches"][name] for out in ranks
+                          for k in ("cli", "resume", "seq"))
+                + sum(out[k][name] for out in ranks
+                      for k in ("steps_launches", "eval_serve_launches"))
+                for name in ("ell_gather_reduce", "masked_scores", "fused_adam")}
+    per_rank = [dict(k4_user_side=o["k4_user_side"], k1_shard=o["k1_shard"],
+                     local_slots=o["local_slots"]) for o in ranks]
+    whole_ms["slots"] = sum(c.numel() for c, _, _ in table.buckets)
+    result = dict(
+        axes=MESH_AXES, backend="gloo", spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
+        cli=first["cli"], eval_s=first["eval_s"], readings=readings, control_loss_rel=control_rel,
+        repeat_max_diff=repeat, resume_max_diff=resume,
+        metric_err=metric_err, seq_loss_rel=seq_loss_rel, seq_metric_err=seq_metric_err,
+        seq_wall_s=first["seq"]["wall_s"], step_ms=first["step_ms"],
+        step_ms_clocked=first["step_ms_clocked"], collective_ms=first["collective_ms"],
+        collective_calls=first["collective_calls"],
+        collective_share=sum(first["collective_ms"].values()) / first["step_ms_clocked"],
+        per_rank=per_rank, single_card=whole_ms, nccl=nccl, launches=launches, limits=lim)
+    log(f"[mesh] step {result['step_ms']:.2f} ms, collectives {result['collective_ms']} "
+        f"(share {result['collective_share']:.3f}); per rank {per_rank}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2778,6 +3203,7 @@ def main() -> int:
     cli = phase("cli", cli_phase, dev, data, out_dir)
     zoo = phase("zoo", zoo_phase, dev, data, train["ell"], out_dir)
     seq = phase("seq", seq_phase, dev, out_dir)
+    mesh = phase("mesh", mesh_phase, dev, out_dir)
     times = phase("time_training", time_training, dev, train)
 
     kernels = serve["kernels"]
@@ -2830,6 +3256,16 @@ def main() -> int:
                                        launches=cli["sides"]["i2i_forward"],
                                        max_abs_err=cli["i2i_k4_err"])
     kernels[-2]["launches_cli"] = cli["launches"]["fused_adam"]
+    # the mesh phase's launches, summed over its ranks (K2 is off the mesh path)
+    for k in kernels:
+        k["launches_mesh"] = mesh["launches"].get(k["name"], 0)
+        k["launches"] += k["launches_mesh"]
+        if k["name"] == "masked_scores":
+            k["mesh_rank_shard_ms"] = [r["k1_shard"]["ms"] for r in mesh["per_rank"]]
+            k["mesh_single_card_catalog_ms"] = mesh["single_card"]["k1_catalog"]["ms"]
+        if k["name"] == "ell_gather_reduce":
+            k["mesh_rank_user_side_ms"] = [r["k4_user_side"]["ms"] for r in mesh["per_rank"]]
+            k["mesh_single_card_user_side_ms"] = mesh["single_card"]["k4_user_side"]["ms"]
     ms = train["ms"]
     log(json.dumps({
         "card": card, "propagation_ms": serve["prop_ms"],
@@ -2847,6 +3283,7 @@ def main() -> int:
         "cli": {k: v for k, v in cli.items() if k != "model"},
         "zoo": zoo,
         "seq": seq,
+        "mesh": mesh,
         "phase_s": phase_s, "smoke_s": time.perf_counter() - t_start,
     }))
     log(json.dumps({"kernels": kernels}))

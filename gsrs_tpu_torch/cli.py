@@ -9,17 +9,22 @@ raises when there is no card; `main`'s ``device`` keyword lets a caller
     python -m gsrs_tpu_torch --dataset gowalla --epochs 1000 --bf16
 
 Every model (``--model lgn|mf|ngcf|xsimgcl|ultragcn``) and layout
-(``--spmm ell|tiled|hybrid|segment``) of the JAX package runs; a mesh
-(``--data_axis``/``--model_axis`` > 1) raises `NotImplementedError`
-naming its ROADMAP.md item (A7). Flags the JAX package accepts and
-ignores (``--a_fold``, ``--A_split``, ``--multicore``, the PPR flags) are
-accepted and ignored.
+(``--spmm ell|tiled|hybrid|segment``) of the JAX package runs, on one
+card or on a ``--data_axis D --model_axis M`` mesh: with no process group
+to join (`gsrs_tpu_torch.parallel.mesh.distributed_init`), the command
+builds the kernels and starts the D · M ranks on this host itself
+(`gsrs_tpu_torch.parallel.launch.spawn`), NCCL with one rank per card or,
+with ``--dist_backend gloo``, several ranks on one card. The data is
+padded to a multiple of M nodes as the JAX CLI pads it. Flags the JAX
+package accepts and ignores (``--a_fold``, ``--A_split``, ``--multicore``,
+the PPR flags) are accepted and ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Optional
 
 from gsrs_tpu_torch.config import (
@@ -151,7 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "ops; pallas = the fused Adam CUDA kernel")
     p.add_argument("--data_axis", type=int, default=1)
     p.add_argument("--model_axis", type=int, default=1)
+    add_backend_flag(p)
     return p
+
+
+def add_backend_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="a mesh's process-group backend: nccl (default on CUDA: one rank per "
+                   "card) or gloo (the CPU; several ranks on one card)")
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
@@ -238,14 +250,25 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     )
 
 
-def check_ported(cfg: ExperimentConfig) -> None:
-    """Raise `NotImplementedError` naming the ROADMAP.md item of a
-    requested feature the port does not run yet: a mesh."""
-    par = cfg.parallel
-    if par.data_axis * par.model_axis > 1:
-        raise NotImplementedError(
-            f"--data_axis {par.data_axis} --model_axis {par.model_axis}: meshes are not "
-            "ported yet (ROADMAP.md A7, parallel/)")
+def launch_if_needed(entry, argv, n_ranks: int, backend: Optional[str], device) -> bool:
+    """For a mesh of ``n_ranks`` > 1 with no process group to join: build
+    the kernels and run ``entry(device, argv)`` in ``n_ranks`` ranks on
+    this host → True when it did (the caller is done); False when this
+    process is a rank already, or there is no mesh."""
+    from gsrs_tpu_torch.device import resolve_device
+    from gsrs_tpu_torch.parallel.launch import build_kernels_for, spawn
+    from gsrs_tpu_torch.parallel.mesh import distributed_init
+
+    device = resolve_device(device)
+    if n_ranks <= 1 or distributed_init(backend, device.type):
+        return False
+    build_kernels_for(device.type)
+    spawn(entry, n_ranks, argv, device_type=device.type, backend=backend)
+    return True
+
+
+def _rank_entry(device, argv) -> None:
+    main(argv, device=device)
 
 
 def load_i2i(path: str):
@@ -291,10 +314,15 @@ def layout_from_interactions(cfg: ModelConfig, data):
 def main(argv: Optional[list] = None, device: DeviceLike = None):
     """Train as the flags say → (the `Trainer`, the final `TrainState`);
     the trainer's model holds the final parameters. ``device`` defaults
-    to ``cuda:0``."""
+    to ``cuda:0``. A mesh started here (see the module docstring) returns
+    None once every rank has finished; in a rank, ``device`` is the
+    rank's."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    check_ported(cfg)
+    if launch_if_needed(_rank_entry, argv, args.data_axis * args.model_axis,
+                        args.dist_backend, device):
+        return None
 
     from gsrs_tpu_torch.data.adjacency import build_graph
     from gsrs_tpu_torch.data.dataset import load_dataset, load_lastfm
@@ -311,6 +339,11 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
         data = load_dataset(cfg.data.dataset_dir, name=args.dataset)
     print(f"[data] {data.name}: {data.n_users} users × {data.m_items} items, "
           f"{data.train_size} train interactions, {len(data.test_dict)} test users")
+    if cfg.parallel.model_axis > 1:
+        from gsrs_tpu_torch.data.dataset import pad_nodes_to_multiple
+
+        # row-sharded tables split evenly over the model axis
+        data = pad_nodes_to_multiple(data, cfg.parallel.model_axis)
     graph = build_graph(data, edge_pad_multiple=cfg.data.edge_pad_multiple,
                         cache_dir=cfg.data.dataset_dir if cfg.data.cache_adjacency else None)
     i2i = None

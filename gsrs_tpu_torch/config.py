@@ -157,7 +157,7 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh layout; only the 1 × 1 mesh is ported (ROADMAP.md A7)."""
+    """Mesh layout: data_axis × model_axis ranks (`gsrs_tpu_torch.parallel`)."""
 
     data_axis: int = 1
     model_axis: int = 1

@@ -104,6 +104,20 @@ def _edge_checksum(users: np.ndarray, items: np.ndarray) -> np.int64:
     return h ^ np.bitwise_xor.reduce(mix) ^ np.int64(mix.sum())
 
 
+def save_npz_atomic(path: str, **arrays) -> None:
+    """``np.savez`` to ``path`` through a temporary file and a rename, so a
+    reader never sees a file half written (the ranks of a mesh build and
+    cache the same dataset at once). A read-only directory only loses
+    the cache."""
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    try:
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    except OSError:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _load_cached_weights(cache_path: str, data: InteractionData) -> Optional[np.ndarray]:
     """Cached weights when the cache matches ``data``, else None."""
     try:
@@ -138,16 +152,8 @@ def build_graph(
     if w is None:
         w = normalized_edge_weights(users, items, data.user_degrees, data.item_degrees)
         if cache_path:
-            try:
-                np.savez(
-                    cache_path,
-                    weights=w,
-                    n_users=data.n_users,
-                    m_items=data.m_items,
-                    checksum=_edge_checksum(users, items),
-                )
-            except OSError:
-                pass  # a read-only dataset dir only loses the cache
+            save_npz_atomic(cache_path, weights=w, n_users=data.n_users,
+                            m_items=data.m_items, checksum=_edge_checksum(users, items))
 
     E = users.size
     pad_E = max(edge_pad_multiple, -(-max(E, 1) // edge_pad_multiple) * edge_pad_multiple)

@@ -3,9 +3,8 @@
 The LightGCN txt format: one line per user, ``uid iid iid …``; blank
 lines and lines with a uid but no items are skipped; ``item:timestamp``
 tokens are tolerated; node counts are max id + 1 over BOTH train and
-test files. Writers of that format and the lastfm loader are here too;
-node padding for a mesh (`pad_nodes_to_multiple`) comes with
-ROADMAP.md A7."""
+test files. Writers of that format, the lastfm loader and the node
+padding for a mesh's model axis (`pad_nodes_to_multiple`) are here too."""
 
 from __future__ import annotations
 
@@ -218,3 +217,30 @@ def _build_test_dict(users: np.ndarray, items: np.ndarray) -> Dict[int, np.ndarr
     for u, i in zip(users.tolist(), items.tolist()):
         test_dict.setdefault(u, []).append(i)
     return {u: np.asarray(v, dtype=np.int64) for u, v in test_dict.items()}
+
+
+# ------------------------------------------------------------------ padding
+
+
+def pad_nodes_to_multiple(data: InteractionData, multiple: int) -> InteractionData:
+    """Round n_users / m_items up to a multiple so row-sharded embedding
+    tables divide evenly across the mesh's model axis. Phantom nodes have
+    zero degree and no edges, so they receive no propagation mass; the
+    recorded ``real_m_items`` makes bitset consumers reject phantom item
+    ids as negatives and mask them out of eval/serving top-k."""
+    if multiple <= 1:
+        return data
+    n = -(-data.n_users // multiple) * multiple
+    m = -(-data.m_items // multiple) * multiple
+    if n == data.n_users and m == data.m_items:
+        return data
+    return InteractionData(
+        name=data.name,
+        n_users=n,
+        m_items=m,
+        train_users=data.train_users,
+        train_items=data.train_items,
+        test_dict=data.test_dict,
+        real_m_items=data.real_m_items or data.m_items,
+        real_n_users=data.real_n_users or data.n_users,
+    )

@@ -120,6 +120,10 @@ class BERT4Rec(SeqModule):
         h = self.encode(draws.corrupted, draws.keep)
         return next_item_bpr(h, self.item_emb, pos, neg, draws.masked)
 
+    def loss_weight(self, pos: torch.Tensor, draws: ClozeDraws) -> torch.Tensor:
+        """The cloze objective weighs the masked positions."""
+        return draws.masked
+
     def user_representations(self, seqs: torch.Tensor) -> torch.Tensor:
         """(B, d): the history shifted left one slot with MASK appended;
         that position's hidden state is the next-item query."""

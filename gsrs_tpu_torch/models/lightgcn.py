@@ -118,7 +118,15 @@ class LightGCN(nn.Module):
     other, as the JAX package ignores ``ell`` there. ``i2i`` is used only with
     ``cfg.use_item_item`` (and without it no smoothing runs, as in the JAX
     package); ``generator`` is a CPU `torch.Generator` for `init_params`
-    (seed 0 when None)."""
+    (seed 0 when None).
+
+    On a mesh (`gsrs_tpu_torch.parallel.sharding.GraphShardings.place_model`)
+    ``ell`` is the rank's shard of the ELL layout and ``layer_sum`` the
+    psum that completes each layer's partial rows over the mesh."""
+
+    # the loss is a mean over the batch's rows: a data-axis rank may take
+    # its slice of the batch (models whose loss couples the rows say False)
+    batch_separable = True
 
     def __init__(
         self,
@@ -144,6 +152,7 @@ class LightGCN(nn.Module):
         elif ell is None or (cfg.spmm_mode == "segment" and not isinstance(ell, EllGraph)):
             ell = default_layout(cfg, graph)
         self.ell = None if ell is None else ell.to(device)
+        self.layer_sum: Optional[Callable] = None
         if i2i is not None and i2i.m_items != self.m_items:
             raise ValueError(f"the i2i graph has {i2i.m_items} items, the model {self.m_items}")
         self.i2i = i2i.to(device) if (cfg.use_item_item and i2i is not None) else None
@@ -229,6 +238,8 @@ class LightGCN(nn.Module):
                 gen, self.graph, cfg.keep_prob, dtype)
         if dropout_generator is not None and cfg.dropout:
             masks = make(dropout_generator)
+        if self.layer_sum is not None:
+            return lambda cur_u, cur_i: self.layer_sum(*fn(g, cur_u, cur_i, masks))
         return lambda cur_u, cur_i: fn(g, cur_u, cur_i, masks)
 
     def _readout(self, acc_u: torch.Tensor, acc_i: torch.Tensor):

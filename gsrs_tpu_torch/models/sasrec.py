@@ -66,6 +66,11 @@ class SeqModule(nn.Module):
     def params(self) -> dict:
         return dict(self.named_parameters())
 
+    def loss_weight(self, pos: torch.Tensor, draws=None) -> torch.Tensor:
+        """The (B, L) weights of the loss's BPR terms: the positions with a
+        next item (a mesh rank scales its share of the loss by them)."""
+        return pos != 0
+
     def catalog(self) -> torch.Tensor:
         """The (m_items, d) rows of the real items (PAD and MASK rows
         dropped), contiguous: a row slice of the table, no copy."""

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gsrs_tpu_torch.data.adjacency import _edge_checksum
+from gsrs_tpu_torch.data.adjacency import _edge_checksum, save_npz_atomic
 from gsrs_tpu_torch.models.lightgcn import LightGCN
 from gsrs_tpu_torch.ops.bitset import bitset_lookup, bitset_row_mask
 
@@ -131,11 +131,8 @@ def build_ii_constraint(
         weights[i0 + rows_s[take], within[take]] = w_s[take]
 
     if cache_path:
-        try:
-            np.savez(cache_path, neighbors=neighbors, weights=weights, k=k, diag_zero=diag_zero,
-                     checksum=checksum)
-        except OSError:
-            pass  # a read-only dataset dir only loses the cache
+        save_npz_atomic(cache_path, neighbors=neighbors, weights=weights, k=k,
+                        diag_zero=diag_zero, checksum=checksum)
     return neighbors, weights
 
 
@@ -149,6 +146,9 @@ class UltraGCN(LightGCN):
     # epochs visit (user, pos) uniformly over interactions, as the paper
     # iterates its shuffled edge list
     samples_pairs_by_edge = True
+    # the negatives are drawn for the whole batch (and shared across it):
+    # every data-axis rank takes the whole batch
+    batch_separable = False
 
     def __init__(self, cfg, graph, i2i=None, ell=None, device=None, generator=None,
                  ii_cache_dir: Optional[str] = None):

@@ -58,6 +58,8 @@ class XSimGCL(LightGCN):
     # the trainer hands a step generator even with edge dropout off: the
     # noise views need it
     needs_step_key = True
+    # the InfoNCE term couples the batch's rows: every data-axis rank takes the whole batch
+    batch_separable = False
 
     def draw_noise(self, generator: torch.Generator) -> Noise:
         """The U(0, 1) fp32 draws of every layer's perturbation, made on the

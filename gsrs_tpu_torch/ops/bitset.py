@@ -79,3 +79,26 @@ def bitset_row_mask(bitset_rows: torch.Tensor, m_items: int) -> torch.Tensor:
     shifts = torch.arange(32, dtype=bitset_rows.dtype, device=bitset_rows.device)
     bits = (bitset_rows[:, :, None] >> shifts) & 1  # (B, W, 32)
     return bits.reshape(B, W * 32)[:, :m_items].bool()
+
+
+def bitset_columns(bitset: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The int32 words of columns [lo, hi) of ``bitset`` (rows, W), as a
+    bitset of their own: column lo + j becomes bit j & 31 of word j >> 5,
+    and the bits past hi - lo in the last word are 0. A catalog shard
+    that starts at a column not a multiple of 32 reads its mask from
+    these words (the masked-scoring kernel reads bit j of its own
+    catalog)."""
+    W = bitset.shape[1]
+    if not 0 <= lo <= hi <= 32 * W:
+        raise ValueError(f"columns [{lo}, {hi}) outside the bitset's {32 * W}")
+    words = bitset_words(hi - lo)
+    # each output word holds the 64-bit window of two input words from bit lo & 31
+    w0, s = lo >> 5, lo & 31
+    u = bitset.long() & 0xFFFFFFFF
+    u = torch.cat([u, u.new_zeros(u.shape[0], 1)], dim=1)
+    idx = torch.arange(w0, w0 + words, device=bitset.device)
+    out = ((u[:, idx] >> s) | (u[:, idx + 1] << (32 - s))) & 0xFFFFFFFF
+    tail = (hi - lo) & 31
+    if tail:
+        out[:, -1] &= (1 << tail) - 1
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32).contiguous()

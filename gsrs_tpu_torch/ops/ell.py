@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -321,3 +321,244 @@ def ell_spmm(graph: EllGraph, x: torch.Tensor) -> torch.Tensor:
     the square A whose ELL form is ``graph`` (`build_ell_graph` over A's
     entries as (row, col, value) with n_users = m_items = A's size)."""
     return _EllSpmm.apply(graph, x)
+
+
+# ---------------------------------------------------- mesh-even padding
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def flat_extras(side: EllSide) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The overflow chunks as the JAX package holds them: (extra_dst,
+    extra_pos) in row order, each row's chunks in chunk order; None when
+    no row was split."""
+    if not side.extra_levels:
+        return None
+    dst = np.concatenate([_np(d) for d, _ in side.extra_levels])
+    pos = np.concatenate([_np(p) for _, p in side.extra_levels])
+    level = np.concatenate([np.full(d.shape[0], j) for j, (d, _) in enumerate(side.extra_levels)])
+    order = np.lexsort((level, dst))
+    return dst[order].astype(np.int32), pos[order].astype(np.int32)
+
+
+def chunk_levels(extra_dst: np.ndarray, extra_pos: np.ndarray):
+    """Flat overflow chunks (row order, chunk order within a row) grouped
+    into `EllSide.extra_levels`: level j holds every row's (j+1)-th chunk,
+    so the destinations of a level are distinct."""
+    order = np.argsort(extra_dst, kind="stable")
+    d = extra_dst[order]
+    start = np.flatnonzero(np.r_[True, d[1:] != d[:-1]])
+    occ = np.empty(d.size, np.int64)
+    occ[order] = np.arange(d.size) - np.repeat(start, np.diff(np.r_[start, d.size]))
+    return tuple((_t(extra_dst[occ == j].astype(np.int32)), _t(extra_pos[occ == j].astype(np.int32)))
+                 for j in range(int(occ.max()) + 1 if d.size else 0))
+
+
+def pad_ell_graph(ell: EllGraph, multiple: int) -> EllGraph:
+    """Pad every bucket's row count to a multiple of ``multiple`` (zero
+    rows, cols and weights: the padded rows compute zeros that no
+    assemble entry points at) and rebuild each side's assemble map and
+    overflow positions for the shifted concat offsets, so the bucket
+    arrays split evenly over an N-rank mesh. CPU tensors, as the
+    builders give them."""
+    if multiple <= 1:
+        return ell
+
+    def pad_side(side: EllSide) -> EllSide:
+        sizes = [int(b.rows.shape[0]) for b in side.buckets]
+        padded = [-(-s // multiple) * multiple for s in sizes]
+        old_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        new_off = np.concatenate([[0], np.cumsum(padded)]).astype(np.int64)
+
+        def remap(arr):
+            arr = np.asarray(arr).astype(np.int64)
+            out = np.full(arr.shape, new_off[-1], dtype=np.int32)  # zero row
+            active = np.flatnonzero(arr < old_off[-1])
+            pos = arr[active]
+            b_of = np.searchsorted(old_off, pos, side="right") - 1
+            out[active] = (new_off[b_of] + (pos - old_off[b_of])).astype(np.int32)
+            return out
+
+        buckets = []
+        for b, s, p in zip(side.buckets, sizes, padded):
+            arrays = [_np(t) for t in (b.rows, b.cols, b.w, b.eidx)]
+            buckets.append(EllBucket(*(_t(np.concatenate(
+                [a, np.zeros((p - s, *a.shape[1:]), a.dtype)])) for a in arrays)))
+        return EllSide(
+            buckets=tuple(buckets),
+            assemble=_t(remap(_np(side.assemble))),
+            n_rows=side.n_rows,
+            extra_levels=tuple((d, _t(remap(_np(p)))) for d, p in side.extra_levels),
+        )
+
+    return dataclasses.replace(ell, by_user=pad_side(ell.by_user), by_item=pad_side(ell.by_item))
+
+
+# ------------------------------------------------------- sharded layout
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEllSide:
+    """One SpMM direction, row-partitioned into ``n_shards`` equal slices
+    (the JAX package's arrays, element for element).
+
+    Every bucket's rows are split into n_shards contiguous chunks padded
+    to equal length (padding slots carry col 0 / weight 0, and no
+    assemble entry points at them), stacked shard-major:
+
+    - ``cols``/``w``/``eidx`` (and ``rows``, 0 on padding): tuple over
+      buckets of (n_shards · rows_ps_b, width_b) tensors; shard s owns
+      rows [s · rows_ps_b, (s + 1) · rows_ps_b).
+    - ``assemble``: (n_shards, n_rows). Shard s's row maps every
+      destination row it owns to its position in s's local concatenation
+      of bucket outputs, and every other row to the local zero row
+      (``local_len``). Summing the shards' assembled outputs (a psum over
+      the mesh) completes the rows.
+    - ``extra_dst``/``extra_pos``: (n_shards, E_max) overflow chunks of
+      split rows, routed to the shard that owns the chunk's bucket row;
+      padding entries add the local zero row into row 0. None when the
+      side has no split row."""
+
+    rows: Tuple[torch.Tensor, ...]
+    cols: Tuple[torch.Tensor, ...]
+    w: Tuple[torch.Tensor, ...]
+    eidx: Tuple[torch.Tensor, ...]
+    assemble: torch.Tensor  # (n_shards, n_rows) int32
+    n_rows: int
+    local_len: int
+    n_shards: int
+    extra_dst: Optional[torch.Tensor] = None  # (n_shards, E_max) int32
+    extra_pos: Optional[torch.Tensor] = None  # (n_shards, E_max) int32
+
+    def local(self, s: int) -> EllSide:
+        """Shard ``s``'s part as an `EllSide` over its local buckets: its
+        apply is the shard's partial (zeros on rows it does not own), the
+        overflow chunks added one chunk level a launch."""
+        def part(t):
+            return t.view(self.n_shards, -1, *t.shape[1:])[s]
+
+        levels = ()
+        if self.extra_dst is not None:
+            dst, pos = _np(self.extra_dst[s]), _np(self.extra_pos[s])
+            real = pos != self.local_len
+            levels = chunk_levels(dst[real], pos[real])
+        return EllSide(
+            buckets=tuple(EllBucket(*(part(t) for t in b))
+                          for b in zip(self.rows, self.cols, self.w, self.eidx)),
+            assemble=self.assemble[s],
+            n_rows=self.n_rows,
+            extra_levels=levels,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEllGraph:
+    by_user: ShardedEllSide
+    by_item: ShardedEllSide
+    n_users: int
+    m_items: int
+
+    def local(self, s: int) -> EllGraph:
+        """Shard ``s``'s part of both directions: `ell_propagate_layer` on
+        it gives the shard's partial rows of a layer, forward and
+        backward (the transpose side's shard sums to the same total)."""
+        return EllGraph(self.by_user.local(s), self.by_item.local(s), self.n_users,
+                        self.m_items)
+
+
+def _shard_side(side: EllSide, n_shards: int) -> ShardedEllSide:
+    """Split each bucket's rows into n_shards padded contiguous chunks and
+    build the per-shard assembly gathers."""
+    assemble_np = _np(side.assemble)
+    sizes = [int(b.rows.shape[0]) for b in side.buckets]
+    g_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    rows_ps = [-(-s // n_shards) for s in sizes]
+    l_off = np.concatenate([[0], np.cumsum(rows_ps)]).astype(np.int64)
+    local_len = int(l_off[-1])
+
+    arrays = []
+    for b, rp in zip(side.buckets, rows_ps):
+        pad = n_shards * rp - int(b.rows.shape[0])
+        arrays.append(tuple(_t(np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]))
+                            for a in (_np(t) for t in (b.rows, b.cols, b.w, b.eidx))))
+
+    def owner_and_local(pos):
+        """global concat position → (owner shard, local concat position)."""
+        bucket_of = np.searchsorted(g_off, pos, side="right") - 1
+        within = pos - g_off[bucket_of]
+        rp_arr = np.asarray(rows_ps, dtype=np.int64)[bucket_of]
+        owner = within // rp_arr
+        return owner, l_off[bucket_of] + (within - owner * rp_arr)
+
+    assemble = np.full((n_shards, side.n_rows), local_len, dtype=np.int32)
+    active = np.flatnonzero(assemble_np < g_off[-1])
+    owner, local_pos = owner_and_local(assemble_np[active].astype(np.int64))
+    assemble[owner, active] = local_pos.astype(np.int32)
+
+    extra_dst = extra_pos = None
+    extras = flat_extras(side)
+    if extras is not None:
+        dst, pos = extras
+        e_owner, e_local = owner_and_local(pos.astype(np.int64))
+        e_max = max(1, int(np.bincount(e_owner, minlength=n_shards).max()))
+        extra_dst = np.zeros((n_shards, e_max), dtype=np.int32)
+        extra_pos = np.full((n_shards, e_max), local_len, dtype=np.int32)
+        for s in range(n_shards):
+            mine = np.flatnonzero(e_owner == s)
+            extra_dst[s, :mine.size] = dst[mine]
+            extra_pos[s, :mine.size] = e_local[mine]
+        extra_dst, extra_pos = _t(extra_dst), _t(extra_pos)
+
+    rows, cols, w, eidx = (tuple(a[k] for a in arrays) for k in range(4))
+    return ShardedEllSide(rows=rows, cols=cols, w=w, eidx=eidx, assemble=_t(assemble),
+                          n_rows=side.n_rows, local_len=local_len, n_shards=n_shards,
+                          extra_dst=extra_dst, extra_pos=extra_pos)
+
+
+def shard_ell_graph(ell: EllGraph, n_shards: int) -> ShardedEllGraph:
+    """Re-layout an EllGraph (CPU tensors) for ``n_shards``-way edge
+    partitioning: each rank of a mesh stores and computes 1/n_shards of
+    every bucket's rows."""
+    return ShardedEllGraph(
+        by_user=_shard_side(ell.by_user, n_shards),
+        by_item=_shard_side(ell.by_item, n_shards),
+        n_users=ell.n_users,
+        m_items=ell.m_items,
+    )
+
+
+def apply_sharded_side_local(
+    side_cols: Sequence[torch.Tensor],
+    side_w: Sequence[torch.Tensor],
+    side_eidx: Sequence[torch.Tensor],
+    assemble_local: torch.Tensor,
+    x: torch.Tensor,
+    edge_mask: Optional[torch.Tensor] = None,
+    extra_dst_local: Optional[torch.Tensor] = None,
+    extra_pos_local: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One shard's partial of ``W @ x`` from its local arrays (the JAX
+    package's signature): (n_rows, d) with zeros on rows the shard does
+    not own; the sum over shards completes the rows. Runs the gather-
+    reduce over the shard's buckets as one `BucketTable` and adds its
+    overflow chunks one chunk level at a time."""
+    local_len = sum(int(c.shape[0]) for c in side_cols)
+    levels = ()
+    if extra_dst_local is not None:
+        dst, pos = _np(extra_dst_local), _np(extra_pos_local)
+        real = pos != local_len
+        levels = tuple((d.to(x.device), p.to(x.device))
+                       for d, p in chunk_levels(dst[real], pos[real]))
+    side = EllSide(
+        buckets=tuple(EllBucket(c.new_zeros(c.shape[0]), c, w, e)
+                      for c, w, e in zip(side_cols, side_w, side_eidx)),
+        assemble=assemble_local, n_rows=int(assemble_local.shape[0]), extra_levels=levels)
+    if edge_mask is not None:
+        edge_mask = edge_mask.detach().float().contiguous()
+    return _apply_side(side, x.contiguous(), edge_mask)

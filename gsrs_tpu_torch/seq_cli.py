@@ -9,16 +9,20 @@ interactions in file order (leave-last-item-out); metrics are HR@k
 (recall with one ground-truth item) and NDCG@k over the full catalog with
 the history masked. Runs on ``cuda:0`` and raises when there is no card;
 `main`'s ``device`` keyword lets a caller (the tests) ask for the CPU. A
-mesh (``--data_axis``/``--model_axis`` > 1) raises `NotImplementedError`
-naming its ROADMAP.md item (A7).
+``--data_axis D --model_axis M`` mesh starts its D · M ranks here, as
+`gsrs_tpu_torch.cli` does (``--dist_backend gloo`` for several ranks on
+one card): batches over the data axis, the item table row-sharded over
+the model axis.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Optional
 
+from gsrs_tpu_torch.cli import add_backend_flag, launch_if_needed
 from gsrs_tpu_torch.device import DeviceLike
 
 
@@ -46,6 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--data_axis", type=int, default=1)
     p.add_argument("--model_axis", type=int, default=1)
+    add_backend_flag(p)
     p.add_argument("--tensorboard", type=int, default=0)
     p.add_argument("--comment", type=str, default="")
     return p
@@ -54,12 +59,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list] = None, device: DeviceLike = None):
     """Train as the flags say → (the `SeqTrainer`, the final
     `SeqTrainState`); the trainer's model holds the final parameters.
-    ``device`` defaults to ``cuda:0``."""
+    ``device`` defaults to ``cuda:0``. A mesh started here returns None
+    once every rank has finished; in a rank, ``device`` is the rank's."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.data_axis * args.model_axis > 1:
-        raise NotImplementedError(
-            f"--data_axis {args.data_axis} --model_axis {args.model_axis}: meshes are not "
-            "ported yet (ROADMAP.md A7, parallel/)")
+    if launch_if_needed(_rank_entry, argv, args.data_axis * args.model_axis,
+                        args.dist_backend, device):
+        return None
 
     from gsrs_tpu_torch.config import topks_from_string
     from gsrs_tpu_torch.data.sequences import (
@@ -90,12 +96,23 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
                             dim=args.dim, hidden=args.hidden, blocks=args.blocks,
                             heads=args.heads, dropout=args.dropout, bf16=args.bf16,
                             device=device)
+    mesh = None
+    if args.data_axis * args.model_axis > 1:
+        from gsrs_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data_axis=args.data_axis, model_axis=args.model_axis, device=device)
+        print(f"[seq] mesh: data={args.data_axis} × model={args.model_axis} ({mesh.backend})")
     trainer = SeqTrainer(model, seq_data, batch_size=args.batch, lr=args.lr, decay=args.decay,
-                         seed=args.seed, topks=topks_from_string(args.topks), device=device)
+                         seed=args.seed, topks=topks_from_string(args.topks), mesh=mesh,
+                         device=device)
     state = trainer.fit(epochs=args.epochs, checkpoint_dir=args.checkpoint_dir,
                         eval_every=args.eval_every, resume=args.resume,
                         tensorboard=bool(args.tensorboard), comment=args.comment)
     return trainer, state
+
+
+def _rank_entry(device, argv) -> None:
+    main(argv, device=device)
 
 
 if __name__ == "__main__":

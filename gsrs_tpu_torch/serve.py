@@ -16,13 +16,25 @@ CLI:
 then the legacy name) into the model that ``model_meta.json`` describes
 (the flags describe it when that file is missing), propagates once and
 writes the artifact. Both run on ``cuda:0`` unless ``--device`` says
-otherwise. Not ported yet: sharded serving (``mesh``/``--model_axis``,
-ROADMAP.md A7).
+otherwise.
+
+Sharded serving: ``Retriever(mesh=...)`` keeps on each rank its rows of
+the user table and its shard of the catalog, both padded to the model
+axis's multiple, with the phantom columns set in every row of the seen
+bitset (so a padding item never outranks a real one). Rank 0 takes a
+request and broadcasts the user ids; each rank scores its catalog shard
+with the masked-scoring kernel (int8 tables shard by shard, as on one
+card) and the model axis merges the top-k with the JAX package's tie
+order. There is no bit-plane layout on a mesh, as in the JAX package.
+``query --model_axis M`` starts the M ranks itself; ``export --model_axis
+M`` pads the dataset as a mesh run of M padded it and writes the
+canonical, unpadded artifact.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,17 +82,30 @@ class Retriever:
     item_scale: Optional[Any] = None
     use_pallas_scoring: object = "auto"
     device: DeviceLike = None
+    mesh: Optional[Any] = None  # a gsrs_tpu_torch.parallel.mesh.Mesh: sharded serving
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         quantized = self.user_scale is not None
         table_dtype = None if quantized else torch.float32
-        self.user_emb = _table(self.user_emb, self.device, table_dtype)
-        self.item_emb = _table(self.item_emb, self.device, table_dtype)
-        self.seen_bitset = bitset_to_tensor(self.seen_bitset, self.device)
+        # on a mesh the canonical public tables stay on the host; the
+        # rank's shards alone go to its device
+        home = torch.device("cpu") if self.mesh is not None else self.device
+        self.user_emb = _table(self.user_emb, home, table_dtype)
+        self.item_emb = _table(self.item_emb, home, table_dtype)
+        self.seen_bitset = bitset_to_tensor(self.seen_bitset, home)
         self._real_n = int(self.user_emb.shape[0])
         self._real_m = int(self.item_emb.shape[0])
         self._bp_perm = None
+        if self.mesh is not None:
+            if quantized:
+                self.user_scale = _table(self.user_scale, home, torch.float32)
+                self.item_scale = _table(self.item_scale, home, torch.float32)
+            elif resolve_bitplane_scoring(self.use_pallas_scoring, self._real_m):
+                raise ValueError("the bit-plane scoring layout is not used on a mesh (as in the "
+                                 "JAX package): use_pallas_scoring 'auto' or 'off'")
+            self._shard_tables()
+            return
         serve_user, serve_item, serve_seen = self.user_emb, self.item_emb, self.seen_bitset
         if quantized:
             self.user_scale = _table(self.user_scale, self.device, torch.float32)
@@ -105,6 +130,72 @@ class Retriever:
                 high = np.array([0xFFFFFFFF << (m % 32) & 0xFFFFFFFF], np.uint32)
                 serve_seen[:, W - 1] |= int(high.view(np.int32)[0])
         self._serve_tables = (serve_user, serve_item, serve_seen)
+
+    def _shard_tables(self) -> None:
+        """This rank's user rows and catalog shard of the tables padded to
+        the model axis's multiple, and its shard's columns of the seen
+        bitset widened to the padded catalog with every phantom column
+        set."""
+        from gsrs_tpu_torch.ops.bitset import bitset_columns
+        from gsrs_tpu_torch.parallel.sharding import rows_of
+
+        M, dev = self.mesh.model_size, self.device
+        n_pad, m_pad = -(-self._real_n // M) * M, -(-self._real_m // M) * M
+        self._u_lo, u_hi = rows_of(n_pad, self.mesh)
+        self._lo, hi = rows_of(m_pad, self.mesh)
+
+        def padded(t, rows, fill=0.0):
+            return torch.cat([t, t.new_full((rows - t.shape[0], *t.shape[1:]), fill)])
+
+        user = padded(self.user_emb, n_pad)[self._u_lo:u_hi].float()
+        items = padded(self.item_emb, m_pad)[self._lo:hi].float()
+        self._u_scale = self._i_scale = None
+        if self.user_scale is not None:
+            self._u_scale = padded(self.user_scale, n_pad, 1.0)[self._u_lo:u_hi].to(dev)
+            self._i_scale = padded(self.item_scale, m_pad, 1.0)[self._lo:hi].to(dev)
+        words = bitset_to_numpy(self.seen_bitset)
+        seen = np.zeros((self._real_n, -(-m_pad // 32)), np.uint32)
+        seen[:, : words.shape[1]] = words
+        phantom = np.arange(self._real_m, m_pad)
+        np.bitwise_or.at(seen.T, (phantom >> 5,),
+                         (np.uint32(1) << (phantom & 31).astype(np.uint32))[:, None])
+        seen_shard = bitset_columns(bitset_to_tensor(seen, torch.device("cpu")), self._lo, hi)
+        self._m_pad = m_pad
+        self._serve_tables = (user.to(dev), items.contiguous().to(dev), seen_shard.to(dev))
+
+    def _mesh_topk(self, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The top-k of a (b,) chunk of user ids on the mesh: each data rank
+        scores its slice of the chunk, the model axis merges the catalog
+        shards, the data axis gathers the slices → (b, k) on every rank."""
+        from gsrs_tpu_torch.parallel.collectives import all_gather, all_reduce_
+        from gsrs_tpu_torch.parallel.dist_train import sharded_topk
+        from gsrs_tpu_torch.parallel.sharding import GraphShardings
+
+        mesh = self.mesh
+        b = ids.shape[0]
+        ids = F.pad(ids, (0, -b % mesh.data_size))
+        ids = ids[GraphShardings(mesh).batch_spec(ids.shape[0])]
+        user, items, seen = self._serve_tables
+        # the model axis holds the user table's rows: each rank fills the
+        # rows it owns, the sum assembles them (one exact nonzero a row)
+        mine = (ids >= self._u_lo) & (ids < self._u_lo + user.shape[0])
+        local = (ids - self._u_lo).clamp(0, user.shape[0] - 1)
+        u = torch.where(mine[:, None], user[local], 0.0)
+        rescale = None
+        if self._u_scale is not None:
+            su = torch.where(mine, self._u_scale[local], 0.0)
+            u, su = all_reduce_(torch.cat([u, su[:, None]], dim=1), mesh, "model").split(
+                [u.shape[1], 1], dim=1)
+            u = u.contiguous()
+            i_scale = self._i_scale
+
+            def rescale(raw):
+                return torch.where(raw == NEG_INF, raw, raw * su * i_scale[None, :])
+        else:
+            all_reduce_(u, mesh, "model")
+        vals, top = sharded_topk(u, items, seen.index_select(0, ids), k, mesh, self._lo,
+                                 self._m_pad, rescale=rescale)
+        return all_gather(vals, mesh, "data")[:b], all_gather(top, mesh, "data")[:b]
 
     @property
     def n_users(self) -> int:
@@ -132,7 +223,15 @@ class Retriever:
         """→ (items int32, scores float32), each (len(user_ids), k);
         already-seen items are excluded. Users are scored ``batch_size``
         at a time. A user with fewer than k unseen items gets item id -1
-        and the −1e9 mask score in the slots left over."""
+        and the −1e9 mask score in the slots left over. On a mesh every
+        rank calls it; rank 0's ``user_ids`` are the request (broadcast),
+        and every rank returns the answer."""
+        if self.mesh is not None:
+            from gsrs_tpu_torch.parallel.collectives import broadcast_object
+
+            user_ids = broadcast_object(
+                np.asarray(user_ids, dtype=np.int64) if self.mesh.is_primary else None,
+                self.mesh)
         ids = np.asarray(user_ids, dtype=np.int64)
         if ids.size and (ids.min() < 0 or ids.max() >= self.n_users):
             bad = ids[(ids < 0) | (ids >= self.n_users)]
@@ -142,7 +241,8 @@ class Retriever:
         out_scores = np.empty((ids.size, k), np.float32)
         for s in range(0, ids.size, B):
             chunk = torch.from_numpy(ids[s : s + B]).to(self.device)
-            scores, items = self._score_topk(chunk, k)
+            score = self._mesh_topk if self.mesh is not None else self._score_topk
+            scores, items = score(chunk, k)
             sc = scores.cpu().numpy()
             it = items.cpu().numpy().astype(np.int32)
             # masked slots carry the −1e9 mask value, far below any real score
@@ -152,19 +252,26 @@ class Retriever:
 
 
 def retriever_from_model(
-    model, data, batch_size: int = 256, device: DeviceLike = None
+    model, data, batch_size: int = 256, device: DeviceLike = None, mesh=None
 ) -> Retriever:
     """Build a Retriever from a live LightGCN: one propagation + fusion,
     then the train-interaction bitset for masking. Embeddings are sliced
-    back to the real node counts if ``data`` was padded."""
+    back to the real node counts if ``data`` was padded. ``mesh``: the
+    mesh the model was placed on (`GraphShardings.place_model`); the
+    propagation runs there and the Retriever serves from it."""
     device = resolve_device(device)
     with torch.no_grad():
-        all_users, items, _ = model.final_embeddings()
+        if mesh is None:
+            all_users, items, _ = model.final_embeddings()
+        else:
+            from gsrs_tpu_torch.parallel.sharding import GraphShardings
+
+            all_users, items, _ = GraphShardings(mesh).call(model, "final_embeddings")
     n_real = getattr(data, "real_n_users", None) or data.n_users
     m_real = getattr(data, "real_m_items", None) or data.m_items
     seen = build_bitset(data.train_users, data.train_items, n_real, m_real)
     return Retriever(
-        all_users[:n_real], items[:m_real], seen, batch_size=batch_size, device=device
+        all_users[:n_real], items[:m_real], seen, batch_size=batch_size, device=device, mesh=mesh
     )
 
 
@@ -197,8 +304,10 @@ def load_retriever(
     batch_size: int = 256,
     use_pallas_scoring: object = "auto",
     device: DeviceLike = None,
+    mesh=None,
 ) -> Retriever:
-    """Load an npz artifact written by either package onto ``device``."""
+    """Load an npz artifact written by either package onto ``device`` (on
+    a ``mesh``, this rank's shards onto its device)."""
     with np.load(path) as z:
         if "user_emb_q" in z.files:  # int8-quantized artifact
             return Retriever(
@@ -209,6 +318,7 @@ def load_retriever(
                 user_scale=z["user_emb_scale"],
                 item_scale=z["item_emb_scale"],
                 device=device,
+                mesh=mesh,
             )
         return Retriever(
             z["user_emb"],
@@ -217,6 +327,7 @@ def load_retriever(
             batch_size=batch_size,
             use_pallas_scoring=use_pallas_scoring,
             device=device,
+            mesh=mesh,
         )
 
 
@@ -246,11 +357,14 @@ def export_checkpoint(args) -> Retriever:
     from gsrs_tpu_torch.models.registry import build_model
     from gsrs_tpu_torch.train.checkpoint import CheckpointManager, legacy_name
 
-    if args.model_axis > 1:
-        raise NotImplementedError("serve export --model_axis > 1 (a checkpoint of a mesh run) "
-                                  "is not ported yet (ROADMAP.md A7)")
     device = resolve_device(args.device)
     data = load_dataset(args.dataset_dir)
+    if args.model_axis > 1:
+        from gsrs_tpu_torch.data.dataset import pad_nodes_to_multiple
+
+        # the graph a mesh run of this model axis trained on (its pop
+        # features count the phantom items); the artifact is cut back
+        data = pad_nodes_to_multiple(data, args.model_axis)
     graph = build_graph(data, cache_dir=args.dataset_dir)
     # the model config the trainer wrote beside its checkpoints; the flags
     # only for a run that left none
@@ -284,7 +398,15 @@ def export_checkpoint(args) -> Retriever:
     missing = set(model.state_dict()) - set(params)
     if missing:
         raise ValueError(f"the checkpoint at {path} lacks {sorted(missing)}")
-    model.load_state_dict({k: params[k] for k in model.state_dict()})
+    from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+    from gsrs_tpu_torch.parallel.sharding import take_rows
+
+    # the checkpoint's tables hold the real rows; phantom rows keep theirs
+    state = model.state_dict()
+    mesh = single_device_mesh(device)
+    model.load_state_dict({k: take_rows(params[k], v.shape[0], mesh, v)
+                           if k in ("user_emb", "item_emb") else params[k]
+                           for k, v in state.items()})
     r = retriever_from_model(model, data, device=device)
     export_embeddings(r, args.out, quantize=args.quantize)
     q = f" ({args.quantize})" if args.quantize else ""
@@ -303,7 +425,8 @@ def main(argv: Optional[list] = None) -> None:
     exp.add_argument("--dataset_dir", required=True)
     exp.add_argument("--out", required=True)
     exp.add_argument("--model_axis", type=int, default=1,
-                     help="the mesh's model axis the run trained with (only 1 is ported)")
+                     help="the model axis the run trained with (its nodes were padded to a "
+                     "multiple of it); the artifact is cut back to the real counts")
     exp.add_argument("--model", default="lgn")
     exp.add_argument("--quantize", choices=["int8"], default=None,
                      help="int8 per-row quantized tables, scored exactly in fp32")
@@ -329,15 +452,42 @@ def main(argv: Optional[list] = None) -> None:
         help="'on' scores in the bit-plane layout; 'auto' and 'off' in natural order",
     )
     qry.add_argument("--device", default=None, help="torch device (default cuda:0)")
+    qry.add_argument("--model_axis", type=int, default=1,
+                     help="shard the catalog over this many ranks (started here)")
+    from gsrs_tpu_torch.cli import add_backend_flag, launch_if_needed
+
+    add_backend_flag(qry)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     if args.cmd == "export":
         export_checkpoint(args)
         return
+    if launch_if_needed(_rank_entry, argv, args.model_axis, args.dist_backend, args.device):
+        return
+    query(args, device=args.device)
 
-    r = load_retriever(
-        args.artifact, use_pallas_scoring=args.use_pallas_scoring, device=args.device
-    )
+
+def _rank_entry(device, argv) -> None:
+    ap_args = list(argv)
+    if "--device" in ap_args:  # the rank's device replaces the parent's
+        i = ap_args.index("--device")
+        del ap_args[i:i + 2]
+    main(ap_args + ["--device", str(device)])
+
+
+def query(args, device: DeviceLike = None) -> None:
+    """``serve query``: the artifact's top-k for ``--users`` (on a mesh,
+    rank 0 prints)."""
+    mesh = None
+    if args.model_axis > 1:
+        from gsrs_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data_axis=1, model_axis=args.model_axis, device=resolve_device(device))
+    r = load_retriever(args.artifact, use_pallas_scoring=args.use_pallas_scoring, device=device,
+                       mesh=mesh)
     items, scores = r.recommend(args.users, k=args.k)
+    if mesh is not None and not mesh.is_primary:
+        return
     for u, its, scs in zip(args.users, items, scores):
         pairs = " ".join(f"{i}:{s:.3f}" for i, s in zip(its, scs))
         print(f"user {u}: {pairs}")

@@ -10,6 +10,13 @@ columns, then mapped back), and sum recall, precision and NDCG on the
 device. The padded tail carries user weight 0. The host reads the sums
 once, at the end of `run` (the threshold method also reads one flag per
 batch).
+
+On a mesh (``mesh``, as the Trainer passes it) the propagation runs on
+the gathered tables and the rank's ELL shard; each rank scores its data
+slice of every batch over its catalog shard and the model axis merges
+the top-k (`gsrs_tpu_torch.parallel.dist_train.sharded_topk`); the metric
+sums are summed over the data axis. Phantom users (a padded dataset's)
+hold no test item, so they count for nothing.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch.nn.functional as F
 from gsrs_tpu_torch.config import EvalConfig
 from gsrs_tpu_torch.data.dataset import InteractionData
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
-from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
+from gsrs_tpu_torch.ops.bitset import bitset_columns, bitset_to_tensor, build_bitset
 from gsrs_tpu_torch.ops.metrics import batch_metrics, topk_labels
 from gsrs_tpu_torch.ops.scoring import (
     bitplane_permutation,
@@ -48,8 +55,10 @@ class Evaluator:
         cfg: EvalConfig,
         train_bitset: Optional[torch.Tensor] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         if model.user_emb.device != self.device:
             raise ValueError(f"the model is on {model.user_emb.device}, the Evaluator on "
                              f"{self.device}")
@@ -91,6 +100,16 @@ class Evaluator:
         self._m = data.m_items
         self._bitplane = (resolve_bitplane_scoring(cfg.use_pallas_scoring, data.m_items)
                           and cfg.pallas_variant == "bitplane")
+        if mesh is not None:
+            from gsrs_tpu_torch.parallel.sharding import GraphShardings, catalog_range
+
+            if self._bitplane:
+                raise ValueError("the bit-plane scoring layout is not used on a mesh (as in the "
+                                 "JAX package): use_pallas_scoring 'auto' or 'off'")
+            self._sh = GraphShardings(mesh)
+            self._part = self._sh.batch_spec(B)
+            self._lo, self._hi = catalog_range(data.m_items, mesh)
+            self._shard_bitset = bitset_columns(self.train_bitset, self._lo, self._hi)
         if self._bitplane:
             m, block_m = self._m, BITPLANE_BLOCK_M
             self._m_pad = -(-m // block_m) * block_m
@@ -126,7 +145,11 @@ class Evaluator:
 
     def _batches(self):
         """One propagation, then per padded batch (users, weights, gt,
-        top item ids, valid or None)."""
+        top item ids, valid or None); on a mesh, of this rank's data
+        slice of each batch."""
+        if self.mesh is not None:
+            yield from self._mesh_batches()
+            return
         all_users, items, _ = self.model.final_embeddings()
         if self._bitplane:
             items = F.pad(items, (0, 0, 0, self._m_pad - self._m))[self._bp_perm].contiguous()
@@ -135,12 +158,31 @@ class Evaluator:
             rows = self.train_bitset.index_select(0, users)
             yield (users, weights, gt) + self._top_items(u_emb, items, rows)
 
+    def _mesh_batches(self):
+        from gsrs_tpu_torch.parallel.dist_train import sharded_topk
+
+        all_users, items, _ = self._sh.call(self.model, "final_embeddings")
+        shard = items[self._lo:self._hi].contiguous()
+        for users, weights, gt in zip(self._users, self._weights, self._gt):
+            users, weights, gt = users[self._part], weights[self._part], gt[self._part]
+            _, top = sharded_topk(all_users.index_select(0, users), shard,
+                                  self._shard_bitset.index_select(0, users), self.max_k,
+                                  self.mesh, self._lo, self._m, self.cfg.topk_method,
+                                  self.cfg.topk_recall_target)
+            yield users, weights, gt, top, None
+
     @torch.no_grad()
     def top_items(self) -> torch.Tensor:
         """(n_test_users, max(topks)) top item ids of the test users, in
         `InteractionData.test_users` order, by ``topk_method``."""
-        tops = [top for _, _, _, top, _ in self._batches()]
-        return torch.cat(tops)[: self.n_test_users]
+        tops = torch.stack([top for _, _, _, top, _ in self._batches()])
+        if self.mesh is not None:
+            from gsrs_tpu_torch.parallel.collectives import all_gather
+
+            # (D · n_batches, B/D, k): data rank d's slices, then the next rank's
+            tops = all_gather(tops, self.mesh, "data").view(self.mesh.data_size, *tops.shape)
+            tops = tops.transpose(0, 1)
+        return tops.reshape(-1, tops.shape[-1])[: self.n_test_users]
 
     @torch.no_grad()
     def run(self) -> Dict[str, float]:
@@ -154,6 +196,11 @@ class Evaluator:
             for k, v in batch_metrics(labels, gt, weights, self.cfg.topks).items():
                 totals[k] = totals[k] + v if k in totals else v
         names = list(totals)
-        values = torch.stack([totals[k] for k in names]).cpu().tolist()
+        values = torch.stack([totals[k] for k in names])
+        if self.mesh is not None:
+            from gsrs_tpu_torch.parallel.collectives import all_reduce_
+
+            all_reduce_(values, self.mesh, "data")
+        values = values.cpu().tolist()
         denom = max(self.n_test_users, 1)
         return {k: v / denom for k, v in zip(names, values)}

@@ -31,6 +31,13 @@ class CsvLogger:
             csv.writer(f).writerow([row.get(col, "") for col in self.header])
 
 
+class NullLog:
+    """A log that writes nothing (a mesh rank other than rank 0)."""
+
+    def append(self, row: Dict[str, object]) -> None:
+        pass
+
+
 def make_train_csv(checkpoint_dir: str) -> CsvLogger:
     return CsvLogger(os.path.join(checkpoint_dir, "train_epoch_metrics.csv"),
                      ["epoch", "time_sec", "train_loss", "lr"])

@@ -21,7 +21,14 @@ whole catalog scored with the history masked by the CUDA kernel of
 sums once. `fit` is the JAX trainer's loop: an eval before every
 ``eval_every``-th epoch and a final one, best-NDCG checkpoints, ``last``
 every epoch, CSV and TensorBoard logs, ``model_meta.json`` and resume.
-Meshes are ROADMAP.md A7.
+
+On a mesh (``mesh``, a `gsrs_tpu_torch.parallel.mesh.Mesh`) the item
+table is padded to the model axis's multiple and row-sharded
+(`gsrs_tpu_torch.parallel.seq_sharding.SeqShardings`); every rank draws
+the same global batch and draws and steps on its data slice, its loss
+share weighted by its slice's part of the global normalisers; eval
+scores catalog shards through K1 and merges them over the model axis.
+Checkpoints hold the canonical, unpadded table, written by rank 0.
 """
 
 from __future__ import annotations
@@ -42,6 +49,11 @@ from gsrs_tpu_torch.ops.linalg import fp32_reduction
 from gsrs_tpu_torch.ops.metrics import batch_metrics, topk_labels
 from gsrs_tpu_torch.ops.scoring import masked_scores
 from gsrs_tpu_torch.ops.topk import topk_scores
+from gsrs_tpu_torch.parallel.collectives import (
+    all_reduce_, broadcast_object, sum_replicated_grads,
+)
+from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+from gsrs_tpu_torch.parallel.seq_sharding import SEQ_TABLES, SeqShardings, slice_rows
 from gsrs_tpu_torch.train.optim import (
     ScheduledAdam, load_optimizer_state, optimizer_state_dict,
 )
@@ -91,7 +103,9 @@ def _catalog_bitset(users: np.ndarray, shifted_items: np.ndarray, n_users: int,
 
 class SeqTrainer:
     """Trains ``model`` (SASRec, GRU4Rec or BERT4Rec on ``device``, default
-    ``cuda:0``) on ``data``."""
+    ``cuda:0``: on a mesh, the rank's device) on ``data``. ``mesh``
+    shards ``model`` in place; batch_size and eval_batch must divide by
+    its data axis."""
 
     def __init__(
         self,
@@ -106,12 +120,18 @@ class SeqTrainer:
         mesh: Optional[Any] = None,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a sharded sequential trainer (mesh) is not ported yet "
-                                      "(ROADMAP.md A7, parallel/seq_sharding.py)")
         self.device = dev = resolve_device(device)
         if model.item_emb.device != dev:
             raise ValueError(f"the model is on {model.item_emb.device}, the trainer on {dev}")
+        if mesh is not None and (batch_size % mesh.data_size or eval_batch % mesh.data_size):
+            raise ValueError(f"batch_size {batch_size} and eval_batch {eval_batch} must divide "
+                             f"by the data axis ({mesh.data_size})")
+        self.mesh = mesh
+        # the 1 x 1 mesh on one card: the checkpoint form is the same
+        self._sh = SeqShardings(mesh or single_device_mesh(dev))
+        self._canonical_rows = int(model.item_emb.shape[0])
+        if mesh is not None:
+            self._sh.place_model(model)
         self.model = model
         self.data = data
         self.batch_size = batch_size
@@ -150,12 +170,22 @@ class SeqTrainer:
         self._eval_seqs = torch.from_numpy(e_seqs.reshape(n_b, B, L)).to(dev)
         self._eval_users = torch.from_numpy(users.reshape(n_b, B)).to(dev)
         self._eval_weights = torch.from_numpy(weights.reshape(n_b, B)).to(dev)
+        if mesh is not None:
+            from gsrs_tpu_torch.ops.bitset import bitset_columns
+            from gsrs_tpu_torch.parallel.sharding import catalog_range
+
+            self._lo, self._hi = catalog_range(data.m_items, mesh)
+            self._hist_shard = bitset_columns(self.hist_bitset, self._lo, self._hi)
 
     # ------------------------------------------------------------------ init
     def init_state(self) -> SeqTrainState:
         """The model's parameters drawn again from ``seed``, and a fresh
         optimizer state."""
-        self.model.init_params(torch.Generator().manual_seed(self.seed))
+        generator = torch.Generator().manual_seed(self.seed)
+        if self.mesh is None:
+            self.model.init_params(generator)
+        else:
+            self._sh.init_params(self.model, generator, self._canonical_rows)
         params = dict(self.model.named_parameters())
         return SeqTrainState(params, self.optimizer.init(params))
 
@@ -171,15 +201,37 @@ class SeqTrainer:
         return StepDraws(neg, self.model.draw(generator, pos))
 
     def _step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws):
+        """One step → (state, the loss; on a mesh this rank's share)."""
         inp = torch.zeros_like(seqs)
         inp[:, 1:] = seqs[:, :-1]
         draws = to_device(draws, self.device)
         with fp32_reduction():  # the backward's bf16 products too
-            loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model)
-            total = loss + self.decay * aux["reg"]
+            if self.mesh is None:
+                loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model)
+                total = loss + self.decay * aux["reg"]
+            else:
+                total = self._mesh_share(inp, seqs, draws)
             total.backward()
+        if self.mesh is not None:
+            sum_replicated_grads([p for k, p in state.params.items() if k not in SEQ_TABLES],
+                                 self.mesh)
         opt_state = self.optimizer.step(state.params, state.opt_state)
         return dataclasses.replace(state, opt_state=opt_state), total.detach()
+
+    def _mesh_share(self, inp, seqs, draws: StepDraws) -> torch.Tensor:
+        """This rank's share of the global batch's ``bpr + decay · reg``:
+        its slice's BPR sum over the global weight total and its slice's
+        reg sum over the global batch, divided by the model-axis copies
+        (the shares sum to the single-card loss over the mesh)."""
+        part = self._sh.batch_spec(seqs.shape[0])
+        local = slice_rows(draws.model, part)
+        loss, aux = self._sh.call(self.model, "next_item_bpr_loss", inp[part], seqs[part],
+                                  draws.neg[part], local)
+        w_local = self.model.loss_weight(seqs[part], local).float().sum().clamp(min=1.0)
+        w_all = self.model.loss_weight(seqs, draws.model).float().sum().clamp(min=1.0)
+        frac = (part.stop - part.start) / seqs.shape[0]
+        return (aux["bpr"] * (w_local / w_all) + self.decay * aux["reg"] * frac) \
+            / self.mesh.model_size
 
     def run_steps(self, state: SeqTrainState, batches, draws: Sequence[StepDraws]):
         """One optimizer step per (B, L) batch of ``batches`` with the
@@ -189,7 +241,11 @@ class SeqTrainer:
         for seqs, d in zip(torch.as_tensor(batches, device=self.device), draws):
             state, loss = self._step(state, seqs.long(), d)
             losses.append(loss)
-        return state, torch.stack(losses)
+        return state, self._global(torch.stack(losses))
+
+    def _global(self, losses: torch.Tensor) -> torch.Tensor:
+        """The ranks' loss shares summed into the steps' losses."""
+        return losses if self.mesh is None else all_reduce_(losses, self.mesh)
 
     def epoch_batches(self, epoch: int) -> torch.Tensor:
         """The epoch's (steps, B, L) batches: one permutation of the
@@ -209,7 +265,7 @@ class SeqTrainer:
             draws = self.draw_step(seqs, self.step_generator(state.epoch, i))
             state, loss = self._step(state, seqs, draws)
             losses.append(loss)
-        mean = float(torch.stack(losses).mean())
+        mean = float(self._global(torch.stack(losses)).mean())
         return dataclasses.replace(state, epoch=state.epoch + 1), mean
 
     # ------------------------------------------------------------------ eval
@@ -218,22 +274,46 @@ class SeqTrainer:
         """Mean HR/recall, precision and NDCG at each k over the eval users,
         of the model's current parameters (``state.params`` are those)."""
         max_k = max(self.topks)
-        items = self.model.catalog()
         totals: Dict[str, torch.Tensor] = {}
         with fp32_reduction():
-            for seqs, users, weights in zip(self._eval_seqs, self._eval_users,
-                                            self._eval_weights):
-                q = self.model.user_representations(seqs).contiguous()
-                scores = masked_scores(q, items, self.hist_bitset.index_select(0, users))
-                labels = topk_labels(topk_scores(scores, max_k)[1], self.target_bitset, users)
+            for seqs, users, weights, top in self._eval_batches(max_k):
+                labels = topk_labels(top, self.target_bitset, users)
                 gt = torch.ones(seqs.shape[0], device=self.device)
                 for k, v in batch_metrics(labels, gt, weights, self.topks).items():
                     totals[k] = totals[k] + v if k in totals else v
         if not totals:
             return {}
         names = list(totals)
-        values = torch.stack([totals[k] for k in names]).cpu().tolist()
+        values = torch.stack([totals[k] for k in names])
+        if self.mesh is not None:
+            all_reduce_(values, self.mesh, "data")
+        values = values.cpu().tolist()
         return {k: v / max(self.n_eval, 1) for k, v in zip(names, values)}
+
+    def _eval_batches(self, max_k: int):
+        """Per eval batch (seqs, users, weights, top-``max_k`` item ids);
+        on a mesh, of this rank's data slice, the catalog scored shard by
+        shard and merged over the model axis."""
+        if self.mesh is None:
+            items = self.model.catalog()
+            for seqs, users, weights in zip(self._eval_seqs, self._eval_users,
+                                            self._eval_weights):
+                q = self.model.user_representations(seqs).contiguous()
+                scores = masked_scores(q, items, self.hist_bitset.index_select(0, users))
+                yield seqs, users, weights, topk_scores(scores, max_k)[1]
+            return
+        from gsrs_tpu_torch.parallel.dist_train import sharded_topk
+        from gsrs_tpu_torch.parallel.sharding import call_with
+
+        full = self._sh.gathered(self.model)
+        items = call_with(self.model, full, "catalog")[self._lo:self._hi].contiguous()
+        part = self._sh.batch_spec(self.eval_batch)
+        for seqs, users, weights in zip(self._eval_seqs, self._eval_users, self._eval_weights):
+            seqs, users, weights = seqs[part], users[part], weights[part]
+            q = call_with(self.model, full, "user_representations", seqs).contiguous()
+            _, top = sharded_topk(q, items, self._hist_shard.index_select(0, users), max_k,
+                                  self.mesh, self._lo, self.data.m_items)
+            yield seqs, users, weights, top
 
     # ------------------------------------------------------------------- fit
     def fit(
@@ -260,17 +340,23 @@ class SeqTrainer:
         )
 
         state = state or self.init_state()
+        primary = self.mesh is None or self.mesh.is_primary
+        verbose = verbose and primary
         ckpt = train_csv = valid_csv = None
-        tb = TensorboardWriter(checkpoint_dir if (tensorboard and checkpoint_dir) else None,
-                               comment or f"seq-{self.data.name}")
+        tb = TensorboardWriter(
+            checkpoint_dir if (tensorboard and checkpoint_dir and primary) else None,
+            comment or f"seq-{self.data.name}")
         if checkpoint_dir:
             ckpt = CheckpointManager(checkpoint_dir)
-            train_csv = make_train_csv(checkpoint_dir)
-            valid_csv = make_valid_csv(checkpoint_dir, self.topks)
-            with open(os.path.join(checkpoint_dir, "model_meta.json"), "w") as f:
-                json.dump(seq_model_meta(self.model), f)
+            if primary:
+                train_csv = make_train_csv(checkpoint_dir)
+                valid_csv = make_valid_csv(checkpoint_dir, self.topks)
+                with open(os.path.join(checkpoint_dir, "model_meta.json"), "w") as f:
+                    json.dump(seq_model_meta(self.model), f)
             if resume:
-                path = ckpt.resolve_resume_path(None)
+                path = ckpt.resolve_resume_path(None) if primary else None
+                if self.mesh is not None:
+                    path = broadcast_object(path, self.mesh)
                 if path is not None:
                     state = self.restore(state, ckpt.restore(path))
                     if verbose:
@@ -287,7 +373,7 @@ class SeqTrainer:
                     self._log_eval(state, metrics, valid_csv, verbose, tb)
                     if ckpt and metrics.get(f"ndcg@{main_k}", 0.0) > best_ndcg:
                         best_ndcg = metrics[f"ndcg@{main_k}"]
-                        ckpt.save_best(self.ckpt_state(state), state.epoch)
+                        self._save(ckpt.save_best, state, state.epoch)
                 t0 = time.time()
                 state, loss = self.train_epoch(state)
                 dt = time.time() - t0
@@ -298,29 +384,41 @@ class SeqTrainer:
                 if verbose:
                     print(f"[epoch {state.epoch}/{epochs}] loss={loss:.5f} ({dt:.2f}s)")
                 if ckpt:
-                    ckpt.save_last(self.ckpt_state(state))
+                    self._save(ckpt.save_last, state)
             if last_eval != state.epoch:
                 metrics = self.evaluate(state)
                 self._log_eval(state, metrics, valid_csv, verbose, tb)
                 if ckpt and metrics.get(f"ndcg@{main_k}", 0.0) > best_ndcg:
-                    ckpt.save_best(self.ckpt_state(state), state.epoch)
+                    self._save(ckpt.save_best, state, state.epoch)
         finally:
             tb.close()
         return state
 
     # ------------------------------------------------------------ checkpoint
     def ckpt_state(self, state: SeqTrainState) -> Dict[str, Any]:
-        """A checkpoint: {params (by name), opt_state, epoch}."""
-        return {"params": {k: p.detach() for k, p in state.params.items()},
-                "opt_state": optimizer_state_dict(state.opt_state, state.params),
-                "epoch": int(state.epoch)}
+        """A checkpoint: {params (by name), opt_state, epoch}, the item
+        table canonical (unpadded). On a mesh every rank calls it."""
+        params, opt = self._sh.canonical_state(
+            {k: p.detach() for k, p in state.params.items()},
+            optimizer_state_dict(state.opt_state, state.params), self._canonical_rows)
+        return {"params": params, "opt_state": opt, "epoch": int(state.epoch)}
+
+    def _save(self, save, state: SeqTrainState, *args) -> None:
+        """``save(checkpoint, *args)`` on rank 0 (every rank gathers)."""
+        ckpt = self.ckpt_state(state)
+        if self.mesh is None or self.mesh.is_primary:
+            save(ckpt, *args)
 
     def restore(self, state: SeqTrainState, saved: Dict[str, Any]) -> SeqTrainState:
-        """Copy a checkpoint's parameters into the live ones and take its
-        optimizer state and epoch."""
+        """Copy a checkpoint's parameters into the live ones (on a mesh,
+        this rank's rows of the padded table) and take its optimizer state
+        and epoch."""
         if set(saved["params"]) != set(state.params):
             raise ValueError(f"the checkpoint's parameters {sorted(saved['params'])} differ "
                              f"from the model's {sorted(state.params)}")
+        params, opt = self._sh.local_state(saved["params"], saved["opt_state"],
+                                           self._canonical_rows)
+        saved = {**saved, "params": params, "opt_state": opt}
         with torch.no_grad():
             for name, p in state.params.items():
                 src = saved["params"][name]

@@ -14,8 +14,19 @@ stop, the ``last`` checkpoint at its cadence, periodic legacy-named
 saves, CSV and TensorBoard logs, ``model_meta.json``, resume and
 ``load_pretrained``. Checkpoints (`gsrs_tpu_torch.train.checkpoint`) hold
 the parameters, the optimizer state (its step count with it), the epoch
-and the best metric; restoring copies into the live parameters. Meshes
-larger than 1 × 1 are ROADMAP.md A7.
+and the best metric, with the tables cut to the data's real node counts
+(phantom rows of a padded run dropped); restoring copies into the live
+parameters.
+
+On a ``data_axis × model_axis`` mesh (`cfg.parallel`, one process per
+rank in an initialized process group) the model is sharded in place
+(`gsrs_tpu_torch.parallel.sharding.GraphShardings.place_model`: table
+rows over ``model``, ELL edge slots over the mesh; the tiled and hybrid
+layouts stay whole, as the JAX Trainer replicates them). Every rank
+samples the same global batches and steps on its data slice
+(`gsrs_tpu_torch.parallel.dist_train.mesh_step`); the evaluator scores
+catalog shards. Rank 0 prints, logs and writes the checkpoints, whose
+tables it gathers into the single-card form; resume shards them again.
 """
 
 from __future__ import annotations
@@ -35,9 +46,15 @@ from gsrs_tpu_torch.data.adjacency import BipartiteGraph
 from gsrs_tpu_torch.data.dataset import InteractionData
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
 from gsrs_tpu_torch.ops.sampling import make_sampler_state, sample_epoch
+from gsrs_tpu_torch.parallel.collectives import all_reduce_, broadcast_object
+from gsrs_tpu_torch.parallel.dist_train import mesh_step
+from gsrs_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
+from gsrs_tpu_torch.parallel.sharding import GRAPH_TABLES, GraphShardings
 from gsrs_tpu_torch.train.checkpoint import CheckpointManager, legacy_name
 from gsrs_tpu_torch.train.evaluator import Evaluator
-from gsrs_tpu_torch.train.logging import TensorboardWriter, make_train_csv, make_valid_csv
+from gsrs_tpu_torch.train.logging import (
+    NullLog, TensorboardWriter, make_train_csv, make_valid_csv,
+)
 from gsrs_tpu_torch.train.optim import (
     load_optimizer_state, make_optimizer, optimizer_state_dict,
 )
@@ -63,9 +80,10 @@ def stream_seed(seed: int, epoch: int, chunk: int, stream: int) -> int:
 
 
 class Trainer:
-    """Trains ``model`` (a LightGCN on ``device``, default ``cuda:0``) on
-    ``data``. ``graph`` is the model's bipartite graph (kept for parity
-    with the JAX trainer's signature)."""
+    """Trains ``model`` (a LightGCN on ``device``, default ``cuda:0``: on a
+    mesh, the rank's device) on ``data``. ``graph`` is the model's
+    bipartite graph (kept for parity with the JAX trainer's signature).
+    A mesh larger than 1 × 1 shards ``model`` in place."""
 
     def __init__(
         self,
@@ -76,15 +94,22 @@ class Trainer:
         run_eval: bool = True,
         device: DeviceLike = None,
     ):
-        par = cfg.parallel
-        if par.data_axis * par.model_axis > 1:
-            raise NotImplementedError(
-                f"a {par.data_axis} x {par.model_axis} mesh is not ported yet "
-                "(ROADMAP.md A7, parallel/); use data_axis = model_axis = 1")
         self.device = resolve_device(device)
         if model.user_emb.device != self.device:
             raise ValueError(f"the model is on {model.user_emb.device}, the Trainer on "
                              f"{self.device}")
+        par = cfg.parallel
+        self.mesh = None
+        if par.data_axis * par.model_axis > 1:
+            self.mesh = make_mesh(par, device=self.device)
+            if model.batch_separable and cfg.train.batch_size % par.data_axis:
+                raise ValueError(f"batch_size {cfg.train.batch_size} must divide by the data "
+                                 f"axis ({par.data_axis})")
+        # the 1 x 1 mesh on one card: its layout is the identity, and the
+        # checkpoint form is the same
+        self._sh = GraphShardings(self.mesh or single_device_mesh(self.device))
+        if self.mesh is not None:
+            self._sh.place_model(model)
         self.cfg = cfg
         self.data = data
         self.graph = graph
@@ -98,7 +123,7 @@ class Trainer:
         self.optimizer, self.schedule = make_optimizer(cfg.train, self.steps_per_epoch)
         self.evaluator = (
             Evaluator(data, model, cfg.eval, train_bitset=self.sampler_state.train_bitset,
-                      device=self.device)
+                      device=self.device, mesh=self.mesh)
             if (run_eval and data.test_dict) else None
         )
         # triplets sampled per epoch; None = train_size
@@ -109,7 +134,11 @@ class Trainer:
         """Re-initializes the model's parameters from ``seed`` (default
         ``cfg.train.seed``) and a fresh optimizer state."""
         seed = self.cfg.train.seed if seed is None else seed
-        self.model.init_params(torch.Generator().manual_seed(seed))
+        generator = torch.Generator().manual_seed(seed)
+        if self.mesh is None:
+            self.model.init_params(generator)
+        else:
+            self._sh.init_params(self.model, generator)
         params = dict(self.model.named_parameters())
         return TrainState(params=params, opt_state=self.optimizer.init(params))
 
@@ -128,7 +157,9 @@ class Trainer:
         """One optimizer step per row of the (n, B) triplet batches →
         (state, the n per-step losses ``loss + decay · reg`` on the
         device). ``dropout_generator`` (on the device) drives edge
-        dropout, and is needed when the config asks for dropout."""
+        dropout, and is needed when the config asks for dropout. On a mesh
+        every rank passes the same global batches and a generator seeded
+        alike; the losses are the global ones, on every rank."""
         batches = [torch.as_tensor(b, dtype=torch.int64, device=self.device)
                    for b in (users_b, pos_b, neg_b)]
         decay = self.cfg.train.decay
@@ -138,12 +169,20 @@ class Trainer:
         opt_state = state.opt_state
         losses = []
         for users, pos, neg in zip(*batches):
+            if self.mesh is not None:
+                opt_state, share = mesh_step(self.model, self.optimizer, self.mesh, state.params,
+                                             opt_state, users, pos, neg, decay, gen)
+                losses.append(share)
+                continue
             loss, aux = self.model.bpr_loss(users, pos, neg, gen)
             total = loss + decay * aux["reg"]
             total.backward()
             opt_state = self.optimizer.step(state.params, opt_state)
             losses.append(total.detach())
-        return dataclasses.replace(state, opt_state=opt_state), torch.stack(losses)
+        losses = torch.stack(losses)
+        if self.mesh is not None:
+            all_reduce_(losses, self.mesh)  # the ranks' shares sum to each step's loss
+        return dataclasses.replace(state, opt_state=opt_state), losses
 
     def train_epoch(self, state: TrainState) -> Tuple[TrainState, float]:
         """One epoch: ``epoch_samples`` (default train_size) triplets,
@@ -206,21 +245,39 @@ class Trainer:
         m = self.cfg.model
         return legacy_name(m.model, self.data.name, m.num_layers, m.embedding_dim)
 
+    @property
+    def primary(self) -> bool:
+        """Whether this process prints, logs and writes checkpoints."""
+        return self.mesh is None or self.mesh.is_primary
+
+    def _table_rows(self, real: bool) -> Dict[str, int]:
+        d = self.data
+        if real:
+            return {"user_emb": d.real_n_users or d.n_users,
+                    "item_emb": d.real_m_items or d.m_items}
+        return {"user_emb": d.n_users, "item_emb": d.m_items}
+
     def _ckpt_state(self, state: TrainState) -> Dict[str, Any]:
-        return {
-            "params": {k: p.detach() for k, p in state.params.items()},
-            "opt_state": optimizer_state_dict(state.opt_state, state.params),
-            "epoch": int(state.epoch),
-            "best_metric": float(state.best_metric),
-        }
+        """The checkpoint: tables (and their moments) whole and cut to the
+        real node counts. On a mesh every rank calls it (it gathers)."""
+        params = {k: p.detach() for k, p in state.params.items()}
+        params, opt = self._sh.canonical_state(
+            params, optimizer_state_dict(state.opt_state, state.params), self._table_rows(True))
+        return {"params": params, "opt_state": opt, "epoch": int(state.epoch),
+                "best_metric": float(state.best_metric)}
 
     def _restore(self, state: TrainState, saved: Dict[str, Any],
                  weights_only: bool = False) -> TrainState:
-        """Copy a checkpoint's parameters into the live ones; unless
+        """Copy a checkpoint's parameters into the live ones (this rank's
+        rows of its tables; phantom rows keep their values); unless
         ``weights_only``, take its optimizer state, epoch and best metric."""
         if set(saved["params"]) != set(state.params):
             raise ValueError(f"the checkpoint's parameters {sorted(saved['params'])} differ "
                              f"from the model's {sorted(state.params)}")
+        live = {k: state.params[k] for k in GRAPH_TABLES}
+        params, opt = self._sh.local_state(saved["params"], saved["opt_state"], live,
+                                           self._table_rows(False))
+        saved = {**saved, "params": params, "opt_state": opt}
         with torch.no_grad():
             for name, p in state.params.items():
                 src = saved["params"][name]
@@ -238,17 +295,28 @@ class Trainer:
         )
 
     def save_last(self, state: TrainState) -> None:
-        self.ckpt.save_last(self._ckpt_state(state))
+        ckpt = self._ckpt_state(state)
+        if self.primary:
+            self.ckpt.save_last(ckpt)
+
+    def _resolve(self, resume_path: Optional[str], legacy: str) -> Optional[str]:
+        """Rank 0's resolution of the resume chain (it may recover a
+        checkpoint stranded mid-swap), on every rank."""
+        path = None
+        if self.primary:
+            path = self.ckpt.resolve_resume_path(resume_path, legacy)
+        return path if self.mesh is None else broadcast_object(path, self.mesh)
 
     def maybe_resume(self, state: TrainState) -> TrainState:
         """Restore from the resume chain (an explicit ``resume_path``, then
         ``last``, then the legacy name); ``state`` unchanged when none
         exists."""
-        path = self.ckpt.resolve_resume_path(self.cfg.train.resume_path, self._legacy_name())
+        path = self._resolve(self.cfg.train.resume_path, self._legacy_name())
         if path is None:
             return state
         state = self._restore(state, self.ckpt.restore(path))
-        print(f"[resume] restored checkpoint from {path}")
+        if self.primary:
+            print(f"[resume] restored checkpoint from {path}")
         return state
 
     # ------------------------------------------------------------------ fit
@@ -263,9 +331,11 @@ class Trainer:
         ``eval_every``-th epoch (epoch 0 included) and after the last one,
         best-NDCG checkpoints and early stop, ``last`` at its cadence (and
         always at the end), periodic legacy-named saves, CSV/TensorBoard
-        logs."""
+        logs. On a mesh every rank runs it; rank 0 alone prints and
+        writes."""
         t_cfg = self.cfg.train
         epochs = t_cfg.epochs if epochs is None else epochs
+        verbose = verbose and self.primary
         state = state or self.init_state()
         if t_cfg.load_pretrained:
             # weights only, from the legacy-named checkpoint; epoch 0 and a
@@ -273,24 +343,29 @@ class Trainer:
             legacy = self._legacy_name()
             legacy_path = os.path.join(t_cfg.checkpoint_dir, legacy)
             path = (legacy_path if os.path.isdir(legacy_path)
-                    else self.ckpt.resolve_resume_path(None, legacy))
+                    else self._resolve(None, legacy))
             if path is not None:
                 state = self._restore(state, self.ckpt.restore(path), weights_only=True)
-                print(f"[load] restored pretrained weights from {path}")
-            else:
+                if self.primary:
+                    print(f"[load] restored pretrained weights from {path}")
+            elif self.primary:
                 print(f"[load] WARNING: no pretrained checkpoint ({legacy})")
         if t_cfg.resume:
             state = self.maybe_resume(state)
 
-        train_csv = make_train_csv(t_cfg.checkpoint_dir)
-        valid_csv = make_valid_csv(t_cfg.checkpoint_dir, self.cfg.eval.topks)
-        # the model config beside the checkpoints, for serve export
-        with open(os.path.join(t_cfg.checkpoint_dir, "model_meta.json"), "w") as f:
-            json.dump(dataclasses.asdict(self.cfg.model), f)
-        tb = TensorboardWriter(log_dir if t_cfg.tensorboard else None, t_cfg.comment)
+        train_csv = valid_csv = NullLog()
+        tb = TensorboardWriter(None)
+        if self.primary:
+            train_csv = make_train_csv(t_cfg.checkpoint_dir)
+            valid_csv = make_valid_csv(t_cfg.checkpoint_dir, self.cfg.eval.topks)
+            # the model config beside the checkpoints, for serve export
+            with open(os.path.join(t_cfg.checkpoint_dir, "model_meta.json"), "w") as f:
+                json.dump(dataclasses.asdict(self.cfg.model), f)
+            tb = TensorboardWriter(log_dir if t_cfg.tensorboard else None, t_cfg.comment)
         main_k = max(self.cfg.eval.topks)
         last_eval_epoch = last_saved_epoch = -1
         evals_since_best = 0
+        finished = False
 
         try:
             while state.epoch < epochs:
@@ -321,16 +396,21 @@ class Trainer:
                     self.save_last(state)
                     last_saved_epoch = state.epoch
                 if t_cfg.save_every and state.epoch % t_cfg.save_every == 0:
-                    self.ckpt.save_periodic(self._ckpt_state(state), self._legacy_name())
+                    ckpt = self._ckpt_state(state)
+                    if self.primary:
+                        self.ckpt.save_periodic(ckpt, self._legacy_name())
 
             # the in-loop eval runs before an epoch, so the state after the
             # last epoch has not been evaluated
             if self.evaluator is not None and last_eval_epoch != state.epoch:
                 state, _ = self._run_eval(state, valid_csv, tb, verbose, "final eval")
+            finished = True
         finally:
             # leave a current 'last' behind (throttled cadence, early stop,
-            # an interrupt), unless the loop just wrote it
-            if t_cfg.checkpoint_dir and last_saved_epoch != state.epoch:
+            # an interrupt), unless the loop just wrote it; a mesh rank
+            # that failed saves nothing (the save gathers from every rank)
+            if (t_cfg.checkpoint_dir and last_saved_epoch != state.epoch
+                    and (finished or self.mesh is None)):
                 self.save_last(state)
             tb.close()
         return state
@@ -354,5 +434,7 @@ class Trainer:
         improved = ndcg > state.best_metric
         if improved:
             state = dataclasses.replace(state, best_metric=ndcg)
-            self.ckpt.save_best(self._ckpt_state(state), state.epoch, self.cfg.train.keep_topk)
+            ckpt = self._ckpt_state(state)
+            if self.primary:
+                self.ckpt.save_best(ckpt, state.epoch, self.cfg.train.keep_topk)
         return state, improved

@@ -62,8 +62,9 @@ def test_config_from_args_matches_jax(name):
     # the default data_root is each package's repo root: the same directory here
     assert got["data"]["data_root"] == want["data"]["data_root"]
     assert got == want
+    # the JAX package's flags, and the port's choice of a mesh's process-group backend
     assert sorted(a.dest for a in cli.build_parser()._actions) == \
-        sorted(a.dest for a in jparser()._actions)
+        sorted([a.dest for a in jparser()._actions] + ["dist_backend"])
 
 
 def test_defaults_and_parsers():
@@ -92,20 +93,37 @@ def test_set_seed_pins_the_global_streams():
     assert torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--data_axis", "2"], "A7"), (["--model_axis", "4"], "A7"),
-    (["--data_axis", "2", "--model", "ngcf", "--spmm", "hybrid"], "A7"),
-])
-def test_unported_flags_raise_naming_their_item(argv, item):
+@pytest.mark.parametrize("spmm,item", [("tiled", "A7b"), ("hybrid", "A7b"), ("ell", None)])
+def test_unported_flags_raise_naming_their_item(spmm, item):
+    """Every flag runs on a mesh now (the Trainer replicates the tiled and
+    hybrid layouts); only the standalone mesh step's column-sharded dense
+    blocks of those two layouts are still to come, and raise naming
+    their ROADMAP.md item."""
+    from gsrs_tpu_torch import config as tcfg
+    from gsrs_tpu_torch.data import adjacency as tadj
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.parallel.dist_train import make_train_step
+    from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+    from gsrs_tpu_torch.train.optim import ScheduledAdam
+
+    data = tsyn.clustered(30, 40, seed=0)
+    cfg = tcfg.ModelConfig(num_layers=1, embedding_dim=4, spmm_mode=spmm, tiled_groups=2,
+                           tiled_cols=8, hybrid_cols=8)
+    model = build_model(cfg, tadj.build_graph(data, edge_pad_multiple=256), device=CPU)
+    args = (model, ScheduledAdam(lambda c: 1e-3), single_device_mesh(CPU), 0.0)
+    if item is None:
+        assert callable(make_train_step(*args))
+        return
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv + ["--dataset", "does-not-exist"], device=CPU)
+        make_train_step(*args)
 
 
 def test_the_shell_entry_point_raises_without_a_card():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-m", "gsrs_tpu_torch", "--data_axis", "2"],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and "ROADMAP.md A7" in out.stderr
+    if not torch.cuda.is_available():  # the mesh's ranks would run on the card
+        assert out.returncode != 0 and "no CUDA device" in out.stderr
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):  # no CPU fallback
@@ -317,6 +335,11 @@ def test_serve_export_without_meta_uses_the_flags(tmp_path):
     with pytest.raises(SystemExit, match="no checkpoint"):
         tserve.main(["export", "--checkpoint_dir", str(tmp_path / "none"), "--dataset_dir", ds,
                      "--out", out, "--device", CPU])
-    with pytest.raises(NotImplementedError, match="A7"):
-        tserve.main(["export", "--checkpoint_dir", str(tmp_path / "ck"), "--dataset_dir", ds,
-                     "--out", out, "--model_axis", "2", "--device", CPU])
+    # a model axis of 2 pads nothing here (120 x 160): the same canonical artifact
+    out2 = str(tmp_path / "emb2.npz")
+    tserve.main(["export", "--checkpoint_dir", str(tmp_path / "ck"), "--dataset_dir", ds,
+                 "--out", out2, "--layer", "1", "--recdim", "8", "--model_axis", "2",
+                 "--device", CPU])
+    with np.load(out) as z, np.load(out2) as z2:
+        for name in z.files:
+            np.testing.assert_array_equal(z2[name], z[name])

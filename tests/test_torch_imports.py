@@ -49,7 +49,9 @@ def test_port_imports_nothing_of_jax():
                  "data.sequences", "models._transformer", "models.sasrec", "models.gru4rec",
                  "models.bert4rec", "train.seq_trainer", "seq_cli", "serve_seq", "utils.timer",
                  "utils.batching", "data.movielens", "data.instacart", "native",
-                 "native.build"):
+                 "native.build", "parallel", "parallel.mesh", "parallel.collectives",
+                 "parallel.launch", "parallel.sharding", "parallel.dist_train",
+                 "parallel.shard_map_train", "parallel.seq_sharding", "parallel.dryrun"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"

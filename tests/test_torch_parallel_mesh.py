@@ -1,0 +1,172 @@
+"""The mesh and its collectives (`gsrs_tpu_torch.parallel.mesh`,
+`...collectives`): the row-major rank grid, the explicit backend choice,
+`distributed_init`'s reading of the launcher's environment (a partial
+explicit configuration raises, as the JAX package's does), and, on four
+gloo ranks spawned on the CPU (a 2 × 2 mesh), the autograd collectives
+under the port's loss convention: each rank back-propagating its share
+gives every rank its rows of the single-process gradient (within a
+relative 1e-6 and 1e-6: fp32 sums of a few terms in another order), and back-propagating the reduced loss
+instead (the control) gives 4× the gradient. The top-k merge orders ties
+by the lower id, as `lax.top_k` does."""
+
+import numpy as np
+import pytest
+import torch
+
+from gsrs_tpu_torch.parallel import collectives as C
+from gsrs_tpu_torch.parallel.launch import spawn
+from gsrs_tpu_torch.parallel.mesh import (
+    Mesh, choose_backend, distributed_init, make_mesh, single_device_mesh,
+)
+
+GRAD_RTOL = GRAD_ATOL = 1e-6
+N_ROWS, DIM, BATCH = 8, 3, 8
+
+
+def problem():
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(N_ROWS, DIM)).astype(np.float32)
+    w = rng.normal(size=DIM).astype(np.float32)
+    mix = rng.normal(size=(4, DIM, DIM)).astype(np.float32)  # rank r's part of the product
+    idx = rng.integers(0, N_ROWS, BATCH)
+    return table, w, mix, idx
+
+
+def loss_of(table, w, mix_sum, idx):
+    z = table @ mix_sum
+    return ((z[idx] @ w) ** 2).mean() + 0.1 * (table ** 2).sum()
+
+
+def _collectives_rank(device):
+    table, w, mix, idx = problem()
+    mesh = make_mesh(data_axis=2, model_axis=2, device=device)
+    rows = slice(mesh.model_index * 4, mesh.model_index * 4 + 4)
+    part = slice(mesh.data_index * 4, mesh.data_index * 4 + 4)
+    out = {}
+    for control in (False, True):
+        local = torch.nn.Parameter(torch.from_numpy(table[rows].copy()))
+        wp = torch.nn.Parameter(torch.from_numpy(w.copy()))
+        full = C.all_gather_rows(local, mesh)
+        (z,) = C.psum(mesh, full @ torch.from_numpy(mix[mesh.rank]))
+        # the batch-independent term is replicated: each rank holds 1/size of it
+        loss = ((z[torch.from_numpy(idx[part])] @ wp) ** 2).mean() + 0.1 * (full ** 2).sum()
+        share = C.local_share(loss, mesh)
+        if control:  # the reduced loss, back-propagated on every rank
+            (share,) = C.psum(mesh, share)
+        share.backward()
+        C.sum_replicated_grads([wp], mesh)
+        out[control] = (local.grad.clone(), wp.grad.clone(), float(C.all_reduce_(
+            share.detach().clone(), mesh)) if not control else float(share.detach()))
+    vals = torch.tensor([[5.0, 3.0, 3.0], [3.0, 1.0, 0.0]]) + mesh.model_index * 0.0
+    ids = torch.tensor([[0, 2, 1], [4, 3, 5]]) + 6 * mesh.model_index
+    out["merge"] = C.merge_topk(vals, ids, 4, mesh)
+    out["bcast"] = C.broadcast_object({"rank": mesh.rank} if mesh.is_primary else None, mesh)
+    out["gathered"] = C.all_gather(torch.tensor([mesh.rank]), mesh, "data")
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    return spawn(_collectives_rank, 4, device_type="cpu", timeout_s=120)
+
+
+def test_each_rank_gets_its_rows_of_the_single_process_gradient(ranks):
+    table, w, mix, idx = problem()
+    t = torch.from_numpy(table).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    ref = loss_of(t, wt, torch.from_numpy(mix.sum(0)), torch.from_numpy(idx))
+    ref.backward()
+    for r, out in enumerate(ranks):
+        g_rows, g_w, loss = out[False]
+        rows = slice((r % 2) * 4, (r % 2) * 4 + 4)
+        np.testing.assert_allclose(g_rows.numpy(), t.grad[rows].numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        np.testing.assert_allclose(g_w.numpy(), wt.grad.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        assert abs(loss - ref.item()) <= 1e-5 * abs(ref.item())
+
+
+def test_back_propagating_the_reduced_loss_counts_the_gradient_n_times(ranks):
+    for out in ranks:
+        (g_rows, g_w, _), (c_rows, c_w, _) = out[False], out[True]
+        np.testing.assert_allclose(c_rows.numpy(), 4 * g_rows.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(c_w.numpy(), 4 * g_w.numpy(), rtol=1e-5, atol=1e-6)
+        assert not np.allclose(c_w.numpy(), g_w.numpy(), rtol=0.5)
+
+
+def test_merge_orders_ties_by_the_lower_id_and_broadcast_reaches_every_rank(ranks):
+    for r, out in enumerate(ranks):
+        vals, ids = out["merge"]
+        # model shard 0 holds ids 0..5, shard 1 ids 6..11, with the same values
+        np.testing.assert_array_equal(vals.numpy(), [[5, 5, 3, 3], [3, 3, 1, 1]])
+        np.testing.assert_array_equal(ids.numpy(), [[0, 6, 1, 2], [4, 10, 3, 9]])
+        assert out["bcast"] == {"rank": 0}
+        np.testing.assert_array_equal(out["gathered"].numpy(), [r % 2, r % 2 + 2])
+
+
+def test_mesh_is_row_major_and_the_backend_is_asked_for():
+    ranks = [Mesh(2, 3, r, torch.device("cpu")) for r in range(6)]
+    assert [(m.data_index, m.model_index) for m in ranks] == [
+        (0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+    assert ranks[0].is_primary and not ranks[1].is_primary and ranks[4].size == 6
+    assert choose_backend(None, "cpu", 4) == "gloo"
+    assert choose_backend("gloo", "cuda", 64) == "gloo"
+    with pytest.raises(ValueError, match="NCCL needs CUDA"):
+        choose_backend("nccl", "cpu", 2)
+    with pytest.raises(ValueError, match="gloo by name"):
+        choose_backend(None, "cuda", torch.cuda.device_count() + 1)
+    one = single_device_mesh("cpu")
+    assert (one.size, one.world, one.rank) == (1, None, 0)
+    x = torch.ones(3)
+    assert C.all_reduce_(x, one) is x and C.psum(one, x)[0].equal(x)
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(data_axis=2, model_axis=2, device="cpu")
+
+
+def test_distributed_init_rejects_partial_explicit_config(monkeypatch):
+    for var in ("GSRS_PROCESS_ID", "JAX_PROCESS_ID", "JAX_NUM_PROCESSES", "RANK",
+                "WORLD_SIZE", "GSRS_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
+    assert distributed_init(device_type="cpu") is False  # nothing to join
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("GSRS_NUM_PROCESSES", "2")
+    with pytest.raises(RuntimeError, match="only one of"):
+        distributed_init(device_type="cpu")
+
+
+def test_shardings_say_which_rows_each_rank_holds():
+    """The layouts' row ranges on a 2 × 3 mesh (no process group needed):
+    tables split over ``model``, batches over ``data``, replicated
+    parameters whole; an uneven table or batch is refused, naming what to
+    do."""
+    from gsrs_tpu_torch.parallel.seq_sharding import SeqShardings, slice_rows
+    from gsrs_tpu_torch.parallel.sharding import GraphShardings, catalog_range, rows_of
+
+    params = {"user_emb": torch.arange(12.0).view(6, 2), "item_emb": torch.arange(18.0).view(9, 2),
+              "pop_fc1.weight": torch.ones(3, 1)}
+    for rank in range(6):
+        mesh = Mesh(2, 3, rank, torch.device("cpu"))
+        sh = GraphShardings(mesh)
+        assert sh.params_spec(params) == {"user_emb": "rows", "item_emb": "rows",
+                                          "pop_fc1.weight": "replicated"}
+        assert sh.opt_state_spec(None, params) == sh.params_spec(params)
+        placed = sh.place_params(params)
+        m = rank % 3
+        assert torch.equal(placed["user_emb"], params["user_emb"][2 * m:2 * m + 2])
+        assert torch.equal(placed["item_emb"], params["item_emb"][3 * m:3 * m + 3])
+        assert placed["pop_fc1.weight"] is params["pop_fc1.weight"]
+        assert sh.batch_spec(8) == slice(4 * (rank // 3), 4 * (rank // 3) + 4)
+        assert sh.place_graph(params) is params  # the BipartiteGraph stays whole
+        assert catalog_range(10, mesh) == [(0, 4), (4, 8), (8, 10)][m]
+        seq = SeqShardings(mesh)
+        assert seq.params_spec(params)["item_emb"] == "rows"
+        assert seq.params_spec(params)["user_emb"] == "replicated"
+        assert seq.padded_rows(51) == 51 and seq.padded_rows(52) == 54
+    with pytest.raises(ValueError, match="pad_nodes_to_multiple"):
+        rows_of(10, Mesh(1, 3, 0, torch.device("cpu")))
+    with pytest.raises(ValueError, match="data axis"):
+        GraphShardings(Mesh(2, 1, 0, torch.device("cpu"))).batch_spec(7)
+    with pytest.raises(NotImplementedError, match="A7b"):
+        GraphShardings(Mesh(2, 1, 0, torch.device("cpu"))).tiled_spec(None)
+    draws = (torch.arange(8), [torch.ones(8, 2)], None)
+    cut = slice_rows(draws, slice(2, 4))
+    assert torch.equal(cut[0], torch.tensor([2, 3])) and cut[1][0].shape == (2, 2)
