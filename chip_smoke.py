@@ -125,10 +125,26 @@
    `seq_cli` on the same mesh against the card. Every rank must launch
    K4, K1 and K3. Readings: ms a mesh step, its collectives' wall time
    (gloo: host-staged, not NVLink), each rank's K4 side and K1 shard
-   against the single card's whole tables. Then NCCL: the CLI across
-   min(cards, 4) cards when there are two or more, else a one-rank NCCL
-   group running the mesh step on this card; the line says which.
-13. Times each kernel by its device time (the kernels' own time in
+   against the single card's whole tables. The same ranks then run the
+   tiled and hybrid layouts, their dense blocks column-sharded
+   (`MESH_BLOCKS`): 3 seeded steps each of bench.py's tiled G64 x C2048
+   bf16 at batch 131072, hybrid C = 8192 bf16 with hash dropout, and tiled
+   C = 2050 fp32 (C not dividing 4: whole on every rank, added by rank 0)
+   through `make_train_step` against the single card, each with a control
+   adding the whole blocks on every rank that must fail the limits; each
+   rank's dense bytes (a quarter, or the whole), K4 launched on each of
+   its residual and `occ` sides, a bf16 mesh layer against its rounding
+   limit, per-rank K4 and product device times beside the whole layout's,
+   the tiled step's collective share, and whether gloo (and NCCL) reduce
+   a bf16 tensor themselves. Then NCCL: the CLI across min(cards, 4) cards
+   when there are two or more, else a one-rank NCCL group running the
+   mesh step on this card; the line says which.
+13. Stress phase, ``python -m gsrs_tpu_torch.stress_pod`` through its
+   `main`: BASELINE config 5's plan on H100s (``--plan_only --chip
+   h100``), one counted run on the card at 1M users x 500k items, dim 256
+   (K4, K3, K1 launched; its peak device memory beside the plan's total),
+   K1 timed at its eval's shape, then ``--smoke`` on four gloo ranks.
+14. Times each kernel by its device time (the kernels' own time in
    torch.profiler's device-side events over a window of launches, after a
    warm-up; CUDA events around the same calls are logged beside it where
    the two differ by more than 10%) beside its bound, its plain version
@@ -150,6 +166,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -663,26 +680,33 @@ def training_data():
                               holdout_frac=0.2)
 
 
-def ell_side_check(table, x, mask, what: str) -> float:
+def ell_side_check(table, x, mask, what: str, slots: int = 1 << 22) -> float:
     """K4 on one side's BucketTable against the plain version, bucket by
-    bucket, the weights (w · mask) rounded to x's dtype as the kernel and
-    the JAX einsum round them, summed in fp32 → max abs error (fp32) or
-    max error over the allowed error (bf16)."""
+    bucket (a large bucket in chunks of rows, so that the plain version's
+    gathered rows stay near ``slots`` a chunk), the weights (w · mask)
+    rounded to x's dtype as the kernel and the JAX einsum round them,
+    summed in fp32 → max abs error (fp32) or max error over the allowed
+    error (bf16)."""
     from gsrs_tpu_torch.ops.ell_kernel import gather_reduce, gather_reduce_reference
 
     got = gather_reduce(table, x, mask)
     torch.cuda.synchronize()
     check(got.dtype == x.dtype, f"{what}: output dtype {got.dtype}")
     row0, worst = 0, 0.0
+    x32 = x.float()
     for cols, w, eidx in table.buckets:
         n_b = cols.shape[0]
         wm = w if mask is None else w * mask[eidx]
-        want = gather_reduce_reference(cols, wm.to(x.dtype).float(), x.float())
-        err = (got[row0:row0 + n_b].float() - want).abs()
-        if x.dtype == torch.float32:
-            worst = max(worst, float(err.max()))
-        else:
-            worst = max(worst, float((err / (ELL_BF16_RTOL * want.abs() + ELL_BF16_ATOL)).max()))
+        step = max(1, slots // max(1, cols.shape[1]))
+        for lo in range(0, n_b, step):
+            hi = min(n_b, lo + step)
+            want = gather_reduce_reference(cols[lo:hi], wm[lo:hi].to(x.dtype).float(), x32)
+            err = (got[row0 + lo:row0 + hi].float() - want).abs()
+            if x.dtype == torch.float32:
+                worst = max(worst, float(err.max()))
+            else:
+                worst = max(worst, float((err / (ELL_BF16_RTOL * want.abs()
+                                                 + ELL_BF16_ATOL)).max()))
         row0 += n_b
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     if x.dtype == torch.float32:
@@ -2332,27 +2356,35 @@ def time_ngcf_adam(dev) -> dict:
     return out
 
 
-def time_k1_d256(dev) -> dict:
-    """K1 at NGCF's eval shape (B = 2048, d = 256, m = 40,981) by device
-    time beside its bound, its plain version and `torch.matmul`."""
+def time_k1_at(dev, B: int, d: int, m: int, what: str) -> dict:
+    """K1 on random (B, d) users, (m, d) items and (B, ⌈m/32⌉) bitset words,
+    held against its plain version on them (`compare`), by device time
+    beside its bound, the plain version and `torch.matmul`."""
     from gsrs_tpu_torch.ops.scoring import masked_scores, masked_scores_reference
 
-    B, m = 2048, GOWALLA_SHAPE["m_items"]
     W = -(-m // 32)
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
-    u = torch.randn(B, ZOO_D, device=dev, generator=g)
-    it = torch.randn(m, ZOO_D, device=dev, generator=g)
+    u = torch.randn(B, d, device=dev, generator=g)
+    it = torch.randn(m, d, device=dev, generator=g)
     bits = torch.randint(-2**31, 2**31, (B, W), device=dev, generator=g,
                          dtype=torch.int64).to(torch.int32)
-    b_ms, b_by = bound(B, ZOO_D, m, W)
-    t = {k: kernel_ms(fn, reps, f"masked_scores d=256 {k}")["ms"] for k, fn, reps in (
+    err = compare(masked_scores(u, it, bits), masked_scores_reference(u, it, bits),
+                  f"masked_scores {what}")
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(B, d, m, W)
+    t = {k: kernel_ms(fn, reps, f"masked_scores {what} {k}")["ms"] for k, fn, reps in (
         ("ms", lambda: masked_scores(u, it, bits), 50),
         ("plain_ms", lambda: masked_scores_reference(u, it, bits), 10),
         ("library_ms", lambda: torch.matmul(u, it.T), 50))}
-    log(f"[time] masked_scores B=2048 d=256 m={m}: {t['ms'] * 1e3:.1f} us, bound "
+    log(f"[time] masked_scores {what}, B={B} d={d} m={m}: {t['ms'] * 1e3:.1f} us, bound "
         f"{b_ms * 1e3:.1f} us ({b_by}), plain {t['plain_ms'] * 1e3:.1f} us, torch.matmul "
-        f"{t['library_ms'] * 1e3:.1f} us")
-    return dict(t, bound_ms=b_ms, bound_by=b_by, shape=[B, ZOO_D, m])
+        f"{t['library_ms'] * 1e3:.1f} us; max abs error against the plain version {err:.3e}")
+    return dict(t, bound_ms=b_ms, bound_by=b_by, shape=[B, d, m], max_abs_err=err)
+
+
+def time_k1_d256(dev) -> dict:
+    """K1 at NGCF's eval shape (B = 2048, d = 256, m = 40,981)."""
+    return time_k1_at(dev, 2048, ZOO_D, GOWALLA_SHAPE["m_items"], "NGCF's eval")
 
 
 def zoo_phase(dev, data, ell, out_dir: str) -> dict:
@@ -2765,6 +2797,36 @@ MESH_BATCH, MESH_STEPS, MESH_CHECK_STEPS = 2048, 10, 3
 MESH_LIMITS = dict(loss_rtol=1e-5, param_atol=1e-5, metric_atol=1e-6,
                    seq_loss_rtol=1e-5, seq_metric_atol=2e-4)
 MESH_SEQ_ARGS = ["--model", "sasrec", "--epochs", "1", "--eval_every", "1"]
+# the mesh's tiled and hybrid runs: 3 seeded steps of each through `make_train_step` on the
+# 2 x 2 mesh against the single card, on the stand-in padded to the model axis, with
+# bench.py's training configuration (batch 131072, lr 1e-3): (a) bench.py's layout, tiled
+# G64 x C2048 in bf16; (b) the hybrid layout at C = 8192 in bf16 with hash dropout; (c) a tiled
+# layout whose 2,050 hub columns do not divide by the 4 ranks (whole on every rank, added by
+# rank 0), in fp32
+MESH_BLOCKS = {
+    "tiled_bf16": dict(spmm_mode="tiled", tiled_groups=TILED_G, tiled_cols=TILED_C,
+                       bf16_compute=True),
+    "hybrid_bf16": dict(spmm_mode="hybrid", hybrid_cols=HYBRID_C, bf16_compute=True,
+                        dropout=True, keep_prob=TILED_DROP[2]),
+    "tiled_c2050": dict(spmm_mode="tiled", tiled_groups=TILED_G, tiled_cols=2050),
+}
+MESH_DIRECTIONS = ("user_from_item", "item_from_user")
+# mesh against one card on those runs: losses by their relative error, parameters by their
+# largest difference and the share of elements over TILED_PARAM_ATOL; each limit sits between
+# the sound reading and the control's (the same 3 steps with the dense blocks added on every
+# rank). fp32: sums in another order (PR 8's limits). bf16: the mesh rounds its partials where
+# one card rounds its sums, about one bf16 rounding (2^-8) of the gradients apart, and an element
+# whose gradient sits at that noise can flip its Adam sign. Chip readings (NVIDIA H100 80GB HBM3,
+# 700 W): fp32 losses equal, parameters 6.0e-8; bf16 losses 1.7e-7 of their size, parameters
+# 2.5e-4 and 2.8e-4 (a share 1.8e-5 and 3.6e-5 over 1e-4); the controls: losses 4.7e-2 to
+# 7.3e-2 of their size, parameters 5.8e-3 to 5.9e-3 (a share 0.917 to 0.929 over 1e-4)
+MESH_BLOCK_LIMITS = {
+    "fp32": dict(loss_rtol=1e-5, param_atol=1e-5, share_over=0.0),
+    "bf16": dict(loss_rtol=1e-4, param_atol=1e-3, share_over=TILED_BF16_PARAM_SHARE),
+}
+# a bf16 mesh layer against the fp32 layer of the bf16-rounded inputs and weights: one rounding
+# more than one card's (TILED_BF16_ROUNDINGS), the psum's single rounding of its fp32 sum
+MESH_BF16_ROUNDINGS = {"forward": 3, "backward": 4}
 
 
 def mesh_cli_argv(root: str, ckpt: str, epochs: int, samples: int, resume: bool = False,
@@ -2777,20 +2839,27 @@ def mesh_cli_argv(root: str, ckpt: str, epochs: int, samples: int, resume: bool 
     return argv + (["--resume"] if resume else [])
 
 
-def padded_model(root: str, device, model_axis: int):
-    """The model and data `cli.main` builds for the mesh CLI run (the
-    stand-in padded to the model axis), here on ``device`` → (cfg, data,
-    model)."""
+def padded_data(root: str, model_axis: int):
+    """The config, data and graph `cli.main` builds for the mesh CLI run
+    (the stand-in padded to the model axis) → (cfg, data, graph)."""
     from gsrs_tpu_torch import cli
     from gsrs_tpu_torch.data.adjacency import build_graph
     from gsrs_tpu_torch.data.dataset import load_dataset, pad_nodes_to_multiple
-    from gsrs_tpu_torch.models.registry import build_model
 
     cfg = cli.config_from_args(cli.build_parser().parse_args(
         mesh_cli_argv(root, os.devnull, 1, MESH_BATCH)))
     data = pad_nodes_to_multiple(load_dataset(cfg.data.dataset_dir, name=CLI_DATASET),
                                  model_axis)
-    graph = build_graph(data, edge_pad_multiple=cfg.data.edge_pad_multiple)
+    return cfg, data, build_graph(data, edge_pad_multiple=cfg.data.edge_pad_multiple)
+
+
+def padded_model(root: str, device, model_axis: int):
+    """The model and data `cli.main` builds for the mesh CLI run, here on
+    ``device`` → (cfg, data, model)."""
+    from gsrs_tpu_torch import cli
+    from gsrs_tpu_torch.models.registry import build_model
+
+    cfg, data, graph = padded_data(root, model_axis)
     model = build_model(cfg.model, graph, None, cli.layout_from_interactions(cfg.model, data),
                         device=device)
     return cfg, data, model
@@ -2799,7 +2868,8 @@ def padded_model(root: str, device, model_axis: int):
 def mesh_steps(model, cfg, mesh, builder, batches, generator_seed: int = SEED):
     """``builder``'s step from the seeded parameters over ``batches`` →
     (losses, the whole parameters after them, the step function and its
-    state for more steps)."""
+    state for more steps). A model with dropout draws its masks from a
+    generator seeded alike on every rank and on the single card."""
     from gsrs_tpu_torch.parallel.collectives import all_gather_rows
     from gsrs_tpu_torch.parallel.sharding import GraphShardings
     from gsrs_tpu_torch.train.optim import make_optimizer
@@ -2813,6 +2883,9 @@ def mesh_steps(model, cfg, mesh, builder, batches, generator_seed: int = SEED):
     optimizer, _ = make_optimizer(cfg.train, 1)
     opt_state = optimizer.init(params)
     step = builder(model, optimizer, mesh, cfg.train.decay)(params, opt_state)
+    if cfg.model.dropout:
+        step = functools.partial(step, generator=torch.Generator(mesh.device).manual_seed(
+            generator_seed + 7))
     losses = []
     for users, pos, neg in batches:
         params, opt_state, loss = step(params, opt_state, *(torch.as_tensor(b, device=mesh.device)
@@ -2859,6 +2932,46 @@ class CollectiveClock:
             setattr(self.dist, name, fn)
 
 
+def probe_bf16_all_reduce(mesh) -> str:
+    """What the mesh's backend makes of a bf16 all-reduce itself (the
+    port's psum does not ask it to: it sums in fp32): rank 0 holds 1 and
+    the others 2^-9, so a sum rounded once reads 1 + 2^-7 on four ranks,
+    one rounded after every add 1 → "sums to x". Both gloo and NCCL take
+    bf16 on the card, so a refusal raises as any other fault does."""
+    import torch.distributed as dist
+
+    x = torch.tensor([1.0 if mesh.rank == 0 else 2.0**-9], dtype=torch.bfloat16,
+                     device=mesh.device)
+    dist.all_reduce(x, group=mesh.world)
+    return f"sums to {float(x)}"
+
+
+def clocked_steps(fn, batch, device, n: int = 5) -> dict:
+    """ms a step of ``fn`` = (step, params, opt_state) from `mesh_steps` on
+    ``batch``, after 2 warm-up steps; then ``n`` more with every collective
+    timed (`CollectiveClock`) → {"step_ms", "step_ms_clocked",
+    "collective_ms", "collective_calls"}, per step."""
+    step, params, opt_state = fn
+    users, pos, neg = (torch.as_tensor(b, device=device) for b in batch)
+
+    def steps(k):
+        nonlocal params, opt_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            params, opt_state, _ = step(params, opt_state, users, pos, neg)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / k
+
+    steps(2)
+    out = dict(step_ms=steps(n))
+    with CollectiveClock() as clock:
+        out["step_ms_clocked"] = steps(n)
+    out["collective_ms"] = {k: v / n for k, v in clock.ms.items()}
+    out["collective_calls"] = {k: v // n for k, v in clock.calls.items()}
+    return out
+
+
 def _one_rank_at_a_time(mesh, fn):
     """``fn()`` on each rank in turn while the others wait (four ranks share
     the card: a kernel timed while the others run would count their work)
@@ -2875,7 +2988,179 @@ def _one_rank_at_a_time(mesh, fn):
     return out
 
 
-def _mesh_rank(device, root: str, batches, seq_root: str) -> dict:
+def block_config(name: str):
+    """The ExperimentConfig of the mesh run ``name`` (`MESH_BLOCKS`):
+    bench.py's, with the run's layout."""
+    from gsrs_tpu_torch.bench import bench_config
+    from gsrs_tpu_torch.config import ModelConfig
+
+    return dataclasses.replace(bench_config(), model=ModelConfig(num_layers=3, embedding_dim=64,
+                                                                 **MESH_BLOCKS[name]))
+
+
+def block_layout(name: str, data, orders):
+    """The whole layout of the mesh run ``name`` on ``data`` (CPU), the
+    tiled ones over the spectral ``orders`` (bench.py's, G = 64)."""
+    from gsrs_tpu_torch.data.adjacency import normalized_edge_weights
+    from gsrs_tpu_torch.ops.hybrid import hybrid_from_interactions
+    from gsrs_tpu_torch.ops.tiled import _build_tiled_graph
+
+    cfg = block_config(name).model
+    dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
+    if cfg.spmm_mode == "hybrid":
+        return hybrid_from_interactions(data, cols=cfg.hybrid_cols, dtype=dtype)
+    users, items = data.train_users.astype(np.int64), data.train_items.astype(np.int64)
+    w = normalized_edge_weights(users, items, data.user_degrees, data.item_degrees)
+    return _build_tiled_graph(users, items, w.astype(np.float32), data.n_users, data.m_items,
+                              cfg.tiled_groups, cfg.tiled_cols, dtype, 4, 0, orders)
+
+
+def count_everywhere(placed, whole):
+    """The control of a mesh run: the rank's ``placed`` layout with every
+    direction's whole dense block (from ``whole``, on the rank's device)
+    added on every rank, so the psum counts it mesh.size times."""
+    def direction(p, w):
+        names = {"dense", "top_src", "slot_w", "occ", "cols", "dense_dst", "dense_col"}
+        kept = {f.name: getattr(w, f.name) for f in dataclasses.fields(w) if f.name in names}
+        return dataclasses.replace(p, **kept, adds_dense=True)
+
+    return dataclasses.replace(placed, **{k: direction(getattr(placed, k), getattr(whole, k))
+                                          for k in MESH_DIRECTIONS})
+
+
+def block_sides(ell) -> dict:
+    """{(direction, side): EllSide} of a tiled or hybrid layout's K4 sides:
+    each residual's forward (dst) and backward (src) side, tiled's occ."""
+    sides = {}
+    for name in MESH_DIRECTIONS:
+        d = getattr(ell, name)
+        sides[f"{name} residual fwd"] = d.residual.by_user
+        sides[f"{name} residual bwd"] = d.residual.by_item
+        if hasattr(d, "occ"):
+            sides[f"{name} occ"] = d.occ
+    return sides
+
+
+def dense_bytes(ell) -> int:
+    return sum(getattr(ell, k).dense.numel() * getattr(ell, k).dense.element_size()
+               for k in MESH_DIRECTIONS)
+
+
+def block_times(ell, n_users: int, m_items: int, reps: int = 100) -> dict:
+    """Device ms a call of K4 on each K4 side of a tiled or hybrid layout
+    (a rank's part or the whole) and of each dense product, forward and on
+    the transposed view, at width 64 in the dense blocks' dtype."""
+    from gsrs_tpu_torch.ops.ell_kernel import gather_reduce
+    from gsrs_tpu_torch.ops.tiled import TiledGraph, _hub_product
+
+    d, dtype = 64, ell.user_from_item.dense.dtype
+    dev = ell.user_from_item.dense.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n_src = {"user_from_item": m_items, "item_from_user": n_users}
+    n_dst = {"user_from_item": n_users, "item_from_user": m_items}
+    out = {}
+    with torch.no_grad():
+        for key, side in block_sides(ell).items():
+            name = key.split()[0]
+            rows = {"fwd": n_src[name], "bwd": n_dst[name]}.get(key.split()[-1])
+            if rows is None:  # occ: the hub slots' cotangents
+                t = getattr(ell, name)
+                rows = t.groups * t.cols
+            x = torch.randn(rows, d, device=dev, generator=g).to(dtype)
+            table = side.table
+            buf = x.new_empty(table.n_rows + 1, d)
+            out[f"{key} K4"] = device_ms(lambda: gather_reduce(table, x, out=buf), reps)
+        for name in MESH_DIRECTIONS:
+            t = getattr(ell, name)
+            x_src = torch.randn(n_src[name], d, device=dev, generator=g).to(dtype)
+            x_dst = torch.randn(n_dst[name], d, device=dev, generator=g).to(dtype)
+            if isinstance(ell, TiledGraph):
+                G, rows_g, C = t.groups, t.rows_g, t.cols
+                a = t.dense.view(G, rows_g, C)
+                fwd = x_src.index_select(0, t.top_src.reshape(-1)).reshape(G, C, d)
+                bwd = x_dst.index_select(0, t.row_nat).view(G, rows_g, d)
+            else:
+                a, fwd, bwd = t.dense[None], x_src.index_select(0, t.top_src)[None], x_dst[None]
+            for kind, lhs, rhs in (("fwd", a, fwd), ("transposed", a.transpose(1, 2), bwd)):
+                out[f"{name} product {kind}"] = device_ms(lambda: _hub_product(lhs, rhs), reps)
+    return out
+
+
+def block_layer_check(model, whole, mesh) -> float:
+    """One bf16 mesh layer forward and VJP, the rank's partials summed by
+    the layer's psum, against the fp32 layer of the whole layout on the
+    bf16-rounded inputs and weights → the largest error over its limit,
+    `bf16_limit` of MESH_BF16_ROUNDINGS."""
+    from gsrs_tpu_torch.ops.hybrid import hybrid_propagate_layer
+    from gsrs_tpu_torch.ops.tiled import TiledGraph, tiled_propagate_layer
+    from gsrs_tpu_torch.parallel.collectives import psum
+
+    fn = tiled_propagate_layer if isinstance(whole, TiledGraph) else hybrid_propagate_layer
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b16 = [torch.randn(n, 64, device=dev, generator=g).bfloat16()
+           for n in (model.n_users, model.m_items, model.n_users, model.m_items)]
+    got = psum(mesh, *layer_and_vjp(fn, model.ell, *b16))
+    w32 = dataclasses.replace(whole, **{k: dataclasses.replace(
+        getattr(whole, k), dense=getattr(whole, k).dense.float(),
+        residual=rounded_ell(getattr(whole, k).residual)) for k in MESH_DIRECTIONS}).to(dev)
+    ref = layer_and_vjp(fn, w32, *(a.float() for a in b16))
+    mag = layer_and_vjp(fn, w32, *(a.float().abs() for a in b16))
+    worst = 0.0
+    for i, (a, want, m) in enumerate(zip(got, ref, mag)):
+        check(a.dtype == torch.bfloat16, f"the bf16 mesh layer's output {i} is {a.dtype}")
+        limit = bf16_limit(m, MESH_BF16_ROUNDINGS["forward" if i < 2 else "backward"])
+        worst = max(worst, float(((a.float() - want).abs() / limit).max()))
+    return worst
+
+
+def _mesh_blocks(device, mesh, root: str, orders, batches) -> dict:
+    """The tiled and hybrid runs of `MESH_BLOCKS` on this rank (see
+    `mesh_phase`): each placed by `GraphShardings.place_model`, 3 counted
+    steps, the dense bytes it holds, K4's launches on each of its sides,
+    the control's first loss; for the bf16 runs the layer check and, one
+    rank at a time, its K4 sides' and dense products' device times; for
+    bench.py's run the step's collective share."""
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.parallel.dist_train import make_train_step
+    from gsrs_tpu_torch.parallel.sharding import GraphShardings
+
+    _, data, graph = padded_data(root, MESH_AXES[1])
+    sh = GraphShardings(mesh)
+    out = {}
+    for name in MESH_BLOCKS:
+        cfg = block_config(name)
+        whole = block_layout(name, data, orders)
+        model = build_model(cfg.model, graph, None, whole, device=device)
+        sh.place_model(model)
+        zero_counts()
+        losses, params, fn = mesh_steps(model, cfg, mesh, make_train_step, batches)
+        torch.cuda.synchronize()
+        r = dict(losses=losses, params=params if mesh.is_primary else None,
+                 launches=read_counts(),
+                 sides={k: v.table.launches for k, v in block_sides(model.ell).items()},
+                 dense_bytes=dense_bytes(model.ell), whole_dense_bytes=dense_bytes(whole),
+                 adds_dense=[getattr(model.ell, k).adds_dense for k in MESH_DIRECTIONS])
+        if cfg.model.bf16_compute:
+            r["layer_over_limit"] = block_layer_check(model, whole, mesh)
+            r["times"] = _one_rank_at_a_time(mesh, lambda: block_times(
+                model.ell, model.n_users, model.m_items))
+        if name == "tiled_bf16":
+            r.update(clocked_steps(fn, batches[0], device, n=3))
+        del fn
+        control = build_model(cfg.model, graph, None, whole, device=device)
+        sh.place_model(control)
+        control.ell = count_everywhere(control.ell, whole.to(device))
+        c_losses, c_params, _ = mesh_steps(control, cfg, mesh, make_train_step, batches)
+        r["control_losses"] = c_losses
+        r["control_params"] = c_params if mesh.is_primary else None
+        out[name] = r
+        del model, control, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches) -> dict:
     """One rank of the mesh phase (see `mesh_phase`)."""
     from unittest import mock
 
@@ -2931,24 +3216,7 @@ def _mesh_rank(device, root: str, batches, seq_root: str) -> dict:
     out["top"] = retriever.recommend(users, k=K)
     out["eval_serve_launches"] = read_counts()
     # readings: the step's wall time, its collectives' share, each rank's kernels
-    step, params, opt_state = fn
-    users_b, pos_b, neg_b = (torch.as_tensor(b, device=device) for b in batches[0])
-
-    def steps(n):
-        nonlocal params, opt_state
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            params, opt_state, _ = step(params, opt_state, users_b, pos_b, neg_b)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / n
-
-    steps(2)
-    out["step_ms"] = steps(5)
-    with CollectiveClock() as clock:
-        out["step_ms_clocked"] = steps(5)
-    out["collective_ms"] = {k: v / 5 for k, v in clock.ms.items()}
-    out["collective_calls"] = {k: v // 5 for k, v in clock.calls.items()}
+    out.update(clocked_steps(fn, batches[0], device))
     x_items = collectives.all_gather_rows(model.item_emb.detach(), mesh).contiguous()
     table = model.ell.by_user.table
     buf = x_items.new_empty(table.n_rows + 1, x_items.shape[1])
@@ -2962,6 +3230,9 @@ def _mesh_rank(device, root: str, batches, seq_root: str) -> dict:
     out["k1_shard"] = _one_rank_at_a_time(mesh, lambda: kernel_ms(
         lambda: masked_scores(u, shard, rows), 50, f"rank {mesh.rank} K1"))
     out["local_slots"] = sum(c.numel() for c, _, _ in table.buckets)
+    # the tiled and hybrid layouts, their dense blocks column-sharded
+    out["bf16_all_reduce"] = probe_bf16_all_reduce(mesh)
+    out["blocks"] = _mesh_blocks(device, mesh, root, orders, block_batches)
     # SASRec through seq_cli on the same mesh
     zero_counts()
     t0 = time.perf_counter()
@@ -2995,7 +3266,133 @@ def _nccl_rank(device, root: str, batches) -> dict:
     GraphShardings(mesh).place_model(model)
     zero_counts()
     losses, whole, _ = mesh_steps(model, cfg, mesh, make_train_step, batches)
-    return dict(backend=dist.get_backend(), losses=losses, params=whole, launches=read_counts())
+    return dict(backend=dist.get_backend(), losses=losses, params=whole, launches=read_counts(),
+                bf16_all_reduce=probe_bf16_all_reduce(mesh))
+
+
+def block_references(dev, data, graph):
+    """The single card's side of the tiled and hybrid mesh runs on the
+    padded stand-in ``data``: bench.py's spectral order (G = 64), 3
+    batches of bench.py's size, and for each run of `MESH_BLOCKS` the
+    losses and whole parameters of its 3 steps and, for the bf16 runs,
+    the device times of the whole layout's K4 sides and dense products →
+    ((orders, batches) for the ranks, {run: readings})."""
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.ops.reorder import spectral_cluster_order
+    from gsrs_tpu_torch.ops.sampling import make_sampler_state, sample_triplets
+    from gsrs_tpu_torch.parallel.dist_train import make_train_step
+    from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+
+    t0 = time.perf_counter()
+    orders = spectral_cluster_order(data.train_users.astype(np.int64),
+                                    data.train_items.astype(np.int64), data.n_users,
+                                    data.m_items, n_clusters=TILED_G)
+    order_s = time.perf_counter() - t0
+    train = block_config("tiled_bf16").train
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    state = make_sampler_state(data, dev)
+    batches = [tuple(t.cpu().numpy() for t in sample_triplets(
+        g, state, train.batch_size, neg_candidates=train.neg_candidates))
+        for _ in range(MESH_CHECK_STEPS)]
+    refs = {}
+    for name in MESH_BLOCKS:
+        cfg = block_config(name)
+        t0 = time.perf_counter()
+        layout = block_layout(name, data, orders)
+        build_s = time.perf_counter() - t0
+        model = build_model(cfg.model, graph, None, layout, device=dev)
+        losses, params, _ = mesh_steps(model, cfg, single_device_mesh(dev), make_train_step,
+                                       batches)
+        refs[name] = dict(losses=losses, params=params, build_s=build_s,
+                          dense_bytes=dense_bytes(model.ell))
+        if cfg.model.bf16_compute:
+            refs[name]["times"] = block_times(model.ell, model.n_users, model.m_items)
+        del model, layout
+        torch.cuda.empty_cache()
+    log(f"[mesh] tiled and hybrid runs: spectral order {order_s:.2f} s; single card's losses "
+        f"{ {k: v['losses'] for k, v in refs.items()} }")
+    return (orders, batches), refs
+
+
+def param_readings(got: dict, want: dict) -> dict:
+    """The largest parameter difference and the share of elements over
+    TILED_PARAM_ATOL."""
+    diffs = [(got[k] - v).abs() for k, v in want.items()]
+    n = sum(d.numel() for d in diffs)
+    return dict(param_max=max(float(d.max()) for d in diffs),
+                share_over=sum(int((d > TILED_PARAM_ATOL).sum()) for d in diffs) / n)
+
+
+def check_blocks(ranks, refs) -> dict:
+    """The tiled and hybrid mesh runs against the single card: losses and
+    parameters within `MESH_BLOCK_LIMITS`, the control outside them, each
+    rank's dense bytes a quarter of the block's (whole where C does not
+    divide, added by rank 0 alone), K4 launched on every K4 side of every
+    rank, the bf16 layer within its rounding limit → readings."""
+    out = {}
+    for name in MESH_BLOCKS:
+        ref, got = refs[name], ranks[0]["blocks"][name]
+        lim = MESH_BLOCK_LIMITS["bf16" if block_config(name).model.bf16_compute else "fp32"]
+        loss_rel = max(abs(a / b - 1) for a, b in zip(got["losses"], ref["losses"]))
+        params = param_readings(got["params"], ref["params"])
+        control_rel = max(abs(a / b - 1) for a, b in zip(got["control_losses"], ref["losses"]))
+        control = param_readings(got["control_params"], ref["params"])
+        log(f"[mesh] {name}: mesh vs card, losses {loss_rel:.3e} of their size, parameters "
+            f"{params['param_max']:.3e} ({params['share_over']:.2e} of them over "
+            f"{TILED_PARAM_ATOL}); the control (the dense blocks counted on every rank): losses "
+            f"{control_rel:.3e}, parameters {control['param_max']:.3e} "
+            f"({control['share_over']:.2e} over); limits {lim}")
+        check(loss_rel <= lim["loss_rtol"], f"{name}: mesh losses differ by {loss_rel}")
+        check(params["param_max"] <= lim["param_atol"]
+              and params["share_over"] <= lim["share_over"], f"{name}: parameters {params}")
+        check(control_rel > lim["loss_rtol"],
+              f"{name}: the control's losses passed ({control_rel})")
+        check(control["param_max"] > lim["param_atol"]
+              and control["share_over"] > lim["share_over"],
+              f"{name}: the control's parameters passed a limit ({control})")
+        m = block_config(name).model
+        cols = m.hybrid_cols if m.spmm_mode == "hybrid" else m.tiled_cols
+        divides = cols % (MESH_AXES[0] * MESH_AXES[1]) == 0
+        for r, o in enumerate(ranks):
+            b = o["blocks"][name]
+            check(b["losses"] == got["losses"], f"rank {r}: {name} losses differ")
+            want = b["whole_dense_bytes"] // (4 if divides else 1)
+            check(b["dense_bytes"] == want and b["whole_dense_bytes"] == ref["dense_bytes"],
+                  f"rank {r} {name}: {b['dense_bytes']} dense bytes, the block "
+                  f"{b['whole_dense_bytes']}")
+            check(all(a == (divides or r == 0) for a in b["adds_dense"]),
+                  f"rank {r} {name}: adds the dense product {b['adds_dense']}")
+            # every residual side runs K4; an occ side where the rank adds its dense product
+            check(all((n > 0) == (("occ" not in side) or divides or r == 0)
+                      for side, n in b["sides"].items()),
+                  f"rank {r} {name}: K4 sides launched {b['sides']}")
+            if "layer_over_limit" in b:
+                check(b["layer_over_limit"] <= 1.0,
+                      f"rank {r} {name}: bf16 layer {b['layer_over_limit']} of its limit")
+        out[name] = dict(
+            loss_rel=loss_rel, **params, control_loss_rel=control_rel,
+            control_param_max=control["param_max"], control_share_over=control["share_over"],
+            limits=lim,
+            build_s=ref["build_s"], dense_bytes=[o["blocks"][name]["dense_bytes"] for o in ranks],
+            whole_dense_bytes=got["whole_dense_bytes"],
+            k4_sides=[o["blocks"][name]["sides"] for o in ranks],
+            launches=[o["blocks"][name]["launches"] for o in ranks])
+        if "times" in ref:
+            out[name]["layer_over_limit"] = [o["blocks"][name]["layer_over_limit"]
+                                             for o in ranks]
+            out[name]["rank_ms"] = [o["blocks"][name]["times"] for o in ranks]
+            out[name]["whole_ms"] = ref["times"]
+            for key, ms in ref["times"].items():
+                log(f"[mesh] {name} {key}: whole {ms * 1e3:.1f} us; ranks "
+                    f"{[round(o['blocks'][name]['times'][key] * 1e3, 1) for o in ranks]} us")
+        if "step_ms" in got:
+            out[name].update({k: got[k] for k in ("step_ms", "step_ms_clocked",
+                                                  "collective_ms", "collective_calls")})
+            out[name]["collective_share"] = (sum(got["collective_ms"].values())
+                                             / got["step_ms_clocked"])
+            log(f"[mesh] {name}: step {got['step_ms']:.1f} ms, collectives "
+                f"{got['collective_ms']} (share {out[name]['collective_share']:.3f})")
+    return out
 
 
 def mesh_phase(dev, out_dir: str) -> dict:
@@ -3025,9 +3422,10 @@ def mesh_phase(dev, out_dir: str) -> dict:
     batches = [tuple(t.cpu().numpy() for t in sample_triplets(g, state, MESH_BATCH))
                for _ in range(MESH_CHECK_STEPS)]
     losses, whole, _ = mesh_steps(model, cfg, single_device_mesh(dev), make_train_step, batches)
+    blocks_in, block_refs = block_references(dev, data, model.graph)
     t0 = time.perf_counter()
     ranks = spawn(_mesh_rank, MESH_AXES[0] * MESH_AXES[1], root, batches, seq_root,
-                  device_type=dev.type, backend="gloo", timeout_s=900)
+                  *blocks_in, device_type=dev.type, backend="gloo", timeout_s=900)
     spawn_s = time.perf_counter() - t0
     first = ranks[0]
     log(f"[mesh] 4 gloo ranks on one card: {spawn_s:.1f} s; CLI {first['cli']['wall_s']:.1f} s "
@@ -3065,6 +3463,9 @@ def mesh_phase(dev, out_dir: str) -> dict:
         f"; the resume: {'bitwise equal' if resume == 0 else f'apart by {resume}'}")
     control_rel = abs(first["control_losses"][0] / losses[0] - 1)
     check(control_rel > lim["loss_rtol"], f"the control passed the loss limit ({control_rel})")
+    log(f"[mesh] gloo's own all-reduce of a bf16 tensor on the card: "
+        f"{first['bf16_all_reduce']} (1 + 2^-7 = 1.0078125 if summed in fp32 and rounded once)")
+    blocks = check_blocks(ranks, block_refs)
     # eval and serving on the shard_map steps' parameters, on one card
     model.load_state_dict({k: v.to(dev) for k, v in first["shard_map"]["params"].items()})
     ev = Evaluator(data, model, cfg.eval, device=dev)
@@ -3132,19 +3533,22 @@ def mesh_phase(dev, out_dir: str) -> dict:
         check(res["launches"]["ell_gather_reduce"] > 0 and res["launches"]["fused_adam"] > 0,
               f"the NCCL rank's launches {res['launches']}")
         nccl = dict(mode="NCCL as a one-rank group on one card", loss_rel=nccl_rel,
-                    param_max=nccl_param)
+                    param_max=nccl_param, bf16_all_reduce=res["bf16_all_reduce"])
     nccl["s"] = time.perf_counter() - t0
-    log(f"[mesh] {nccl['mode']}: {nccl['s']:.1f} s")
+    log(f"[mesh] {nccl['mode']}: {nccl['s']:.1f} s; NCCL's own bf16 all-reduce: "
+        f"{nccl.get('bf16_all_reduce', 'not probed across cards')}")
     launches = {name: sum(out[k]["launches"][name] for out in ranks
                           for k in ("cli", "resume", "seq"))
                 + sum(out[k][name] for out in ranks
                       for k in ("steps_launches", "eval_serve_launches"))
+                + sum(b["launches"][name] for out in ranks for b in out["blocks"].values())
                 for name in ("ell_gather_reduce", "masked_scores", "fused_adam")}
     per_rank = [dict(k4_user_side=o["k4_user_side"], k1_shard=o["k1_shard"],
                      local_slots=o["local_slots"]) for o in ranks]
     whole_ms["slots"] = sum(c.numel() for c, _, _ in table.buckets)
     result = dict(
-        axes=MESH_AXES, backend="gloo", spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
+        axes=MESH_AXES, backend="gloo", gloo_bf16_all_reduce=first["bf16_all_reduce"],
+        spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
         cli=first["cli"], eval_s=first["eval_s"], readings=readings, control_loss_rel=control_rel,
         repeat_max_diff=repeat, resume_max_diff=resume,
         metric_err=metric_err, seq_loss_rel=seq_loss_rel, seq_metric_err=seq_metric_err,
@@ -3152,10 +3556,93 @@ def mesh_phase(dev, out_dir: str) -> dict:
         step_ms_clocked=first["step_ms_clocked"], collective_ms=first["collective_ms"],
         collective_calls=first["collective_calls"],
         collective_share=sum(first["collective_ms"].values()) / first["step_ms_clocked"],
-        per_rank=per_rank, single_card=whole_ms, nccl=nccl, launches=launches, limits=lim)
+        per_rank=per_rank, single_card=whole_ms, nccl=nccl, launches=launches, limits=lim,
+        blocks=blocks)
     log(f"[mesh] step {result['step_ms']:.2f} ms, collectives {result['collective_ms']} "
         f"(share {result['collective_share']:.3f}); per rank {per_rank}")
     return result
+
+
+# -------------------------------------------------------------- stress phase
+# `python -m gsrs_tpu_torch.stress_pod`: the plan of BASELINE config 5 (50M users x 10M items,
+# dim 256, a 4 x 16 mesh) on H100s; one run on the card at 1M users x 500k items, dim 256,
+# degree 27, batch 65536, eval batch 1024 (a plan of 9.1 GiB), bf16 layers and the fused Adam
+# kernel; then the harness's --smoke on a 2 x 2 mesh of gloo ranks on the card
+STRESS_RUN = ["--n_users", "1000000", "--m_items", "500000", "--dim", "256", "--avg_degree",
+              "27", "--batch", "65536", "--eval_batch", "1024", "--data_axis", "1",
+              "--model_axis", "1", "--fused_adam", "pallas", "--steps", "10"]
+STRESS_SMOKE = ["--smoke", "--dist_backend", "gloo", "--fused_adam", "pallas"]
+
+
+def stress_phase(dev) -> dict:
+    """The stress harness through its entry point: the plan, the run on the
+    card (counted: K4 on its ELL sides, K1 on its eval, K3 on its tables;
+    its peak device memory beside the plan's total), K4 on both sides of
+    the run's ELL and K1 at the eval's shape held against their plain
+    versions at the run's width in bf16 (K4) and fp32 (K1), then --smoke
+    on four gloo ranks (rank 0's launches)."""
+    from unittest import mock
+
+    from gsrs_tpu_torch import stress_pod
+    from gsrs_tpu_torch.models import registry
+
+    plan = run_quiet(stress_pod.main, ["--plan_only", "--chip", "h100"])[0]
+    log(f"[stress] BASELINE config 5 on H100s ({plan['mesh']}): "
+        f"{plan['per_device_GiB']['total']} GiB a device, fits {plan['fits']}, "
+        f"min_model_axis_for_fit {plan['min_model_axis_for_fit']}")
+    built = []
+
+    def keep_model(*a, _build=registry.build_model, **kw):
+        built.append(_build(*a, **kw))
+        return built[-1]
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(registry, "build_model", keep_model):
+        res, text = run_quiet(stress_pod.main, STRESS_RUN, device=dev)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(text.rstrip().endswith("STRESS OK"), "the stress run did not print STRESS OK")
+    for name in KERNELS:
+        check(launches[name] > 0 and res["launches"][name] == launches[name],
+              f"the stress run launched {launches[name]} {name} ({res['launches']})")
+    mem = res["memory"]
+    log(f"[stress] {res['edges']} edges, 1M x 500k x 256 on one card: {wall_s:.1f} s, of it "
+        f"the build and first step {res['build_s']} s; train step "
+        f"{res['train']['train_step_ms']} ms ({res['train']['examples_per_s']} examples/s, loss "
+        f"{res['train']['loss']:.6f}); eval top-20 {res['eval']['eval_topk_ms']} ms; peak device "
+        f"memory {mem['peak_device_GiB']} GiB against the plan's {mem['plan_total_GiB']} "
+        f"GiB; launches {launches}")
+    # K4 at the run's width (d = 256 in bf16: four columns a thread, two passes of the column
+    # loop) on both sides of the run's ELL, then K1 at the eval's shape
+    (model,) = built
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    k4 = {}
+    with torch.no_grad():
+        for side, rows in (("by_user", model.m_items), ("by_item", model.n_users)):
+            x = torch.randn(rows, model.user_emb.shape[1], device=dev, generator=g).bfloat16()
+            k4[side] = ell_side_check(getattr(model.ell, side).table, x, None,
+                                      f"stress ELL {side} bf16 d={x.shape[1]}")
+            log(f"[stress] K4 on the run's {side} side, bf16 ({rows}, {x.shape[1]}): max error "
+                f"{k4[side]:.3e} of the bf16 limit")
+            del x
+    del model, built
+    torch.cuda.empty_cache()
+    k1 = time_k1_at(dev, 1024, 256, 500_000, "stress eval")
+    t0 = time.perf_counter()
+    small = stress_pod.main(STRESS_SMOKE, device=dev)
+    smoke_s = time.perf_counter() - t0
+    for name in KERNELS:
+        check(small["launches"][name] > 0, f"the stress smoke's rank 0 launched no {name}")
+    log(f"[stress] --smoke on 4 gloo ranks: {smoke_s:.1f} s; rank 0's launches "
+        f"{small['launches']}")
+    return dict(plan={k: plan[k] for k in ("mesh", "fits", "min_model_axis_for_fit",
+                                           "per_device_GiB")},
+                run={k: res[k] for k in ("train", "eval", "memory", "build_s", "edges")},
+                wall_s=wall_s, k1=k1, k4_err_over_limit=k4, smoke_s=smoke_s,
+                smoke={k: small[k] for k in ("train", "eval", "launches")},
+                launches={k: launches[k] + small["launches"][k] for k in launches})
 
 
 def main() -> int:
@@ -3204,6 +3691,7 @@ def main() -> int:
     zoo = phase("zoo", zoo_phase, dev, data, train["ell"], out_dir)
     seq = phase("seq", seq_phase, dev, out_dir)
     mesh = phase("mesh", mesh_phase, dev, out_dir)
+    stress = phase("stress", stress_phase, dev)
     times = phase("time_training", time_training, dev, train)
 
     kernels = serve["kernels"]
@@ -3215,7 +3703,8 @@ def main() -> int:
             k["launches"] += cli["launches"]["masked_scores"] + zoo["launches"]["masked_scores"]
             k["launches_cli"] = cli["launches"]["masked_scores"]
             k["launches_zoo"] = zoo["launches"]["masked_scores"]
-            k["at_d256"] = dict(zoo["k1_d256"], max_abs_err=errs["masked_scores_d256"],
+            k["at_d256"] = dict(zoo["k1_d256"], max_abs_err=max(errs["masked_scores_d256"],
+                                                                zoo["k1_d256"]["max_abs_err"]),
                                 launches_ngcf=zoo["runs"]["ngcf"]["launches"]["masked_scores"])
             # the sequential family's evals and session requests
             k["launches"] += seq["launches"]["masked_scores"]
@@ -3266,6 +3755,18 @@ def main() -> int:
         if k["name"] == "ell_gather_reduce":
             k["mesh_rank_user_side_ms"] = [r["k4_user_side"]["ms"] for r in mesh["per_rank"]]
             k["mesh_single_card_user_side_ms"] = mesh["single_card"]["k4_user_side"]["ms"]
+            # the tiled and hybrid runs: each K4 side, whole on one card and each rank's shard
+            k["mesh_block_sides_ms"] = {
+                run: {side: dict(whole=b["whole_ms"][side], ranks=[t[side] for t in b["rank_ms"]])
+                      for side in b["whole_ms"] if side.endswith("K4")}
+                for run, b in mesh["blocks"].items() if "whole_ms" in b}
+        # the stress harness: its run on the card and the rank 0 of its --smoke
+        k["launches_stress"] = stress["launches"].get(k["name"], 0)
+        k["launches"] += k["launches_stress"]
+        if k["name"] == "masked_scores":
+            k["stress_eval"] = stress["k1"]
+        if k["name"] == "ell_gather_reduce":
+            k["stress_sides_bf16_err_over_limit"] = stress["k4_err_over_limit"]
     ms = train["ms"]
     log(json.dumps({
         "card": card, "propagation_ms": serve["prop_ms"],
@@ -3284,6 +3785,7 @@ def main() -> int:
         "zoo": zoo,
         "seq": seq,
         "mesh": mesh,
+        "stress": stress,
         "phase_s": phase_s, "smoke_s": time.perf_counter() - t_start,
     }))
     log(json.dumps({"kernels": kernels}))

@@ -105,10 +105,14 @@ class HybridDirection:
     res_src: torch.Tensor  # (E_res,) int32 src id of each residual edge
     dense_dst: torch.Tensor  # (E_dense,) int64 row of each nonzero dense cell
     dense_col: torch.Tensor  # (E_dense,) int64 column of each nonzero dense cell
+    # False on the ranks of a mesh that hold a replicated dense block but
+    # leave its product to the one rank that counts it (`parallel.sharding`)
+    adds_dense: bool = True
 
     def to(self, device) -> "HybridDirection":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if f.name != "adds_dense"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +237,9 @@ def _masked_dense(d: HybridDirection, drop: HashDrop, dst_is_user: bool) -> torc
 
 def _direction_mask(d: HybridDirection, drop: HashDrop, dst_is_user: bool) -> DirectionMask:
     uu, ii = (d.res_dst, d.res_src) if dst_is_user else (d.res_src, d.res_dst)
-    return DirectionMask(_masked_dense(d, drop, dst_is_user), hash_keep(uu, ii, drop))
+    # a rank that leaves a replicated block's product to another adds none: no mask for it
+    dense = _masked_dense(d, drop, dst_is_user) if d.adds_dense else d.dense
+    return DirectionMask(dense, hash_keep(uu, ii, drop))
 
 
 def hybrid_masks(hg: HybridGraph, drop: Optional[HashDrop]):
@@ -254,7 +260,8 @@ def _apply_direction(
     d: HybridDirection, x: torch.Tensor, mask: Optional[DirectionMask] = None
 ) -> torch.Tensor:
     out = _apply_side(d.residual.by_user, x, None if mask is None else mask.residual)
-    if d.top_src.numel() == 0:  # memory guard degenerate: dense blocks disabled, pure ELL
+    # memory guard degenerate (dense blocks disabled, pure ELL), or another rank's block
+    if d.top_src.numel() == 0 or not d.adds_dense:
         return out
     hub = x.index_select(0, d.top_src)  # (C, dim)
     return out + _hub_product(_dense_block(d, mask, x.dtype)[None], hub[None])[0]
@@ -266,7 +273,7 @@ def _apply_direction_t(
     """Wᵀ @ g for one direction: the residual's transpose side plus the
     dense block's transposed product added into the C hub rows."""
     out = _apply_side(d.residual.by_item, g, None if mask is None else mask.residual)
-    if d.top_src.numel() == 0:
+    if d.top_src.numel() == 0 or not d.adds_dense:
         return out
     # the transposed view, not a copy
     hub_cot = _hub_product(_dense_block(d, mask, g.dtype).t()[None], g[None])[0]  # (C, dim)

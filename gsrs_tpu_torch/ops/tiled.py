@@ -58,6 +58,7 @@ class TiledDirection:
 
     dense: torch.Tensor  # (G*rows_g, C) grouped hub weights, compute dtype
     top_src: torch.Tensor  # (G, C) int32 natural source ids (pad: 0, w=0)
+    slot_w: torch.Tensor  # (G, C) fp32 occ's weights: 1 on a real hub slot, 0 on padding
     order_dst: torch.Tensor  # (n_dst,) int32: natural row -> grouped position
     row_nat: torch.Tensor  # (G*rows_g,) int32: grouped position -> natural row
     occ: EllSide  # hub-slot occurrences per source node (backward accum)
@@ -67,13 +68,16 @@ class TiledDirection:
     groups: int
     rows_g: int
     cols: int
+    # False on the ranks of a mesh that hold a replicated dense block but
+    # leave its product to the one rank that counts it (`parallel.sharding`)
+    adds_dense: bool = True
 
     def to(self, device) -> "TiledDirection":
         return dataclasses.replace(
             self,
             **{k: getattr(self, k).to(device)
-               for k in ("dense", "top_src", "order_dst", "row_nat", "occ", "residual",
-                         "res_dst", "res_src")},
+               for k in ("dense", "top_src", "slot_w", "order_dst", "row_nat", "occ",
+                         "residual", "res_dst", "res_src")},
         )
 
 
@@ -145,23 +149,13 @@ def _build_tiled_direction(
         n_users=n_dst,
         m_items=n_src,
     )
-    # backward accumulation: "edges" (src_node <- hub slot g*C+c), unit
-    # weight for real slots, 0 for padding (padded slots alias node 0
-    # but their dense column is all-zero, so doubly inert)
-    occ = _build_side(
-        top_src.reshape(-1).astype(np.int64),
-        np.arange(G * C, dtype=np.int64),
-        occ_w.reshape(-1),
-        np.arange(G * C, dtype=np.int32),
-        n_src,
-        min_width,
-    )
     return TiledDirection(
         dense=torch.from_numpy(dense).to(dtype),
         top_src=torch.from_numpy(top_src),
+        slot_w=torch.from_numpy(occ_w),
         order_dst=torch.from_numpy(order_dst.astype(np.int32)),
         row_nat=torch.from_numpy(row_nat),
-        occ=occ,
+        occ=occ_side(top_src, occ_w, n_src, min_width),
         residual=residual,
         res_dst=torch.from_numpy(dst[res].astype(np.int32)),
         res_src=torch.from_numpy(src[res].astype(np.int32)),
@@ -169,6 +163,16 @@ def _build_tiled_direction(
         rows_g=rows_g,
         cols=C,
     )
+
+
+def occ_side(top_src: np.ndarray, slot_w: np.ndarray, n_src: int, min_width: int = 4) -> EllSide:
+    """The backward's accumulation side over (G, C) hub slots: "edges"
+    (source node ← hub slot g·C + c) weighted by ``slot_w``, 1 for a real
+    slot and 0 for padding (padded slots alias node 0, but their dense
+    column is all-zero, so they are doubly inert)."""
+    n = top_src.size
+    return _build_side(top_src.reshape(-1).astype(np.int64), np.arange(n, dtype=np.int64),
+                       slot_w.reshape(-1), np.arange(n, dtype=np.int32), n_src, min_width)
 
 
 def _build_tiled_graph(users, items, w, n_users, m_items, groups, cols, dtype, min_width,
@@ -267,7 +271,9 @@ def _masked_dense(d: TiledDirection, drop: HashDrop, dst_is_user: bool) -> torch
 
 def _direction_mask(d: TiledDirection, drop: HashDrop, dst_is_user: bool) -> DirectionMask:
     uu, ii = (d.res_dst, d.res_src) if dst_is_user else (d.res_src, d.res_dst)
-    return DirectionMask(_masked_dense(d, drop, dst_is_user), hash_keep(uu, ii, drop))
+    # a rank that leaves a replicated block's product to another adds none: no mask for it
+    dense = _masked_dense(d, drop, dst_is_user) if d.adds_dense else d.dense
+    return DirectionMask(dense, hash_keep(uu, ii, drop))
 
 
 def tiled_masks(tg: TiledGraph, drop: Optional[HashDrop]):
@@ -290,7 +296,8 @@ def _apply_direction(
 ) -> torch.Tensor:
     out = _apply_side(d.residual.by_user, x, None if mask is None else mask.residual)
     G, rows_g, C = d.groups, d.rows_g, d.cols
-    if C == 0:  # memory guard degenerate: dense blocks disabled, pure ELL
+    # memory guard degenerate (dense blocks disabled, pure ELL), or another rank's block
+    if C == 0 or not d.adds_dense:
         return out
     xg = x.index_select(0, d.top_src.reshape(-1)).reshape(G, C, -1)
     dd = (d.dense if mask is None else mask.dense).to(x.dtype)
@@ -306,7 +313,7 @@ def _apply_direction_t(
     (G·C, dim) hub cotangents accumulate scatter-free through ``occ``."""
     out = _apply_side(d.residual.by_item, g, None if mask is None else mask.residual)
     G, rows_g, C = d.groups, d.rows_g, d.cols
-    if C == 0:
+    if C == 0 or not d.adds_dense:
         return out
     gy = g.index_select(0, d.row_nat)  # (G*rows_g, dim); pad rows hit
     # all-zero dense rows, so their duplicated cotangent contributes 0

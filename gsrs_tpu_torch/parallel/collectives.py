@@ -21,6 +21,11 @@ count every gradient ``mesh.size`` times. A collective over an axis
 without a process group (an axis of one rank, the 1 × 1 mesh) is the
 identity.
 
+`psum` sums bf16 (and fp16) tensors in fp32: it casts them, all-reduces
+and rounds the sum once to their dtype, so a bf16 layer's partials are
+rounded as one card rounds its layer's sum, once, whatever the backend
+and the number of ranks.
+
 `merge_topk` merges the catalog shards' top-k over the model axis with
 JAX's tie order (`lax.top_k`: the lower item id first), which
 `torch.topk` does not promise.
@@ -99,11 +104,14 @@ class _Psum(torch.autograd.Function):
 
 def _sum_flat(xs, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
     """Sum every tensor of ``xs`` over the mesh with one all-reduce of
-    their concatenation (one dtype)."""
+    their concatenation (one dtype; a 16-bit float one summed in fp32 and
+    rounded once)."""
     if mesh.world is None:
         return tuple(x.clone() for x in xs)
     flat = torch.cat([x.reshape(-1) for x in xs])
-    dist.all_reduce(flat, group=mesh.world)
+    wide = flat.float() if flat.dtype in (torch.bfloat16, torch.float16) else flat
+    dist.all_reduce(wide, group=mesh.world)
+    flat = wide.to(flat.dtype)
     return tuple(p.view_as(x) for p, x in zip(flat.split([x.numel() for x in xs]), xs))
 
 

@@ -9,8 +9,12 @@ one core of `make_train_step` and
 1. every rank takes the same global batch and keeps its ``data`` slice
    (the whole batch for a model whose loss couples its rows);
 2. the row-sharded tables are gathered over ``model`` (`call_gathered`);
-3. each layer runs the gather-reduce kernel on the rank's ELL shard and a
-   psum over the mesh completes it (`GraphShardings.place_model`);
+3. each layer runs on the rank's part of the layout and a psum over the
+   mesh completes it (`GraphShardings.place_model`): the gather-reduce
+   kernel on its ELL shard, or on its tiled or hybrid residual shard
+   beside the product of its columns of the dense hub blocks (the tiled
+   backward's ``occ`` side built over those columns); a bf16 layer's
+   partials are summed in fp32 and rounded once;
 4. the local-batch loss, as this rank's share of the global loss
    (`collectives.local_share`), is back-propagated: the psums' and the
    gather's backwards sum the gradients, the replicated parameters'
@@ -60,16 +64,13 @@ def mesh_step(model, optimizer, mesh: Mesh, params, opt_state, users, pos, neg, 
 
 
 def check_layout(model, mesh: Mesh) -> None:
-    """The layouts a mesh step runs: the ELL (and segment) layout sharded
-    by `GraphShardings.place_model`, or none (MF, UltraGCN replicate
-    whatever the slot holds). Tiled and hybrid raise (ROADMAP.md A7b)."""
-    if isinstance(model.ell, TiledGraph):
-        GraphShardings(mesh).tiled_spec(model.ell)
-    if isinstance(model.ell, HybridGraph):
-        GraphShardings(mesh).hybrid_spec(model.ell)
-    if isinstance(model.ell, EllGraph) and mesh.size > 1 and model.layer_sum is None:
-        raise ValueError("the model's ELL layout is not sharded: place the model with "
-                         "GraphShardings(mesh).place_model(model) first")
+    """The layouts a mesh step runs: the ELL (and segment), tiled and
+    hybrid layouts sharded by `GraphShardings.place_model`, or none (MF,
+    UltraGCN replicate whatever the slot holds)."""
+    if (isinstance(model.ell, (EllGraph, TiledGraph, HybridGraph)) and mesh.size > 1
+            and model.layer_sum is None):
+        raise ValueError(f"the model's {type(model.ell).__name__} layout is not sharded: place "
+                         "the model with GraphShardings(mesh).place_model(model) first")
 
 
 def _step_fn(model, optimizer, mesh: Mesh, decay: float) -> Callable:

@@ -13,15 +13,25 @@ lets GSPMD move the data; here a layout says which rows a rank keeps.
   BipartiteGraph stays whole on the host: the port reads its edges
   through the ELL, and the edge-dropout mask is drawn whole on every rank
   from the same generator;
+- the tiled and hybrid layouts (`tiled_spec`, `hybrid_spec`): each
+  direction's residual ELL sharded as the ELL layout is, and its dense
+  hub block column-sharded over the whole mesh when its C columns divide
+  by the mesh size: the rank keeps its C/size contiguous columns (per
+  group, for tiled) and the matching hub ids, so its product is a
+  partial sum over its columns that the layer's psum completes, as GSPMD
+  splits the contraction in JAX. A block whose C does not divide stays
+  whole on every rank, and rank 0 alone adds its product (forward and
+  transpose), so the psum counts it once. The gather maps and canonical
+  edge lists (``order_dst``, ``row_nat``, ``res_dst``, ``res_src``) stay
+  whole; the hash dropout masks are computed on the rank's columns and
+  hub ids, so they drop the edges one card drops;
 - BPR batches: sharded over ``data`` (`batch_spec`), every rank slicing
   the same global batch.
 
 `place_model` applies all of it to a built model in place: its table
 parameters become the rank's rows, and its propagation layer runs on the
-rank's ELL shard. `call_gathered` runs a model method on the gathered
-tables. The tiled and hybrid layouts are replicated, as the JAX Trainer
-replicates them; their column-sharded dense blocks (`tiled_spec`,
-`hybrid_spec`) are ROADMAP.md A7b.
+rank's part of its layout, completed by a psum after every layer.
+`call_gathered` runs a model method on the gathered tables.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ import torch
 from torch import nn
 
 from gsrs_tpu_torch.ops.ell import EllGraph, pad_ell_graph, shard_ell_graph
+from gsrs_tpu_torch.ops.hybrid import HybridGraph
+from gsrs_tpu_torch.ops.tiled import TiledGraph, occ_side
 from gsrs_tpu_torch.parallel.collectives import all_gather_rows, psum
 from gsrs_tpu_torch.parallel.mesh import Mesh
 
@@ -155,24 +167,79 @@ class GraphShardings:
         (its edges reach the device through `place_ell`'s shards)."""
         return graph
 
-    def place_ell(self, ell: EllGraph) -> EllGraph:
-        """Pad every bucket's rows to a multiple of the mesh size, shard
-        them over the whole mesh and keep this rank's shard on its device."""
+    def place_ell(self, ell):
+        """This rank's part of a layout (`EllGraph`, `TiledGraph` or
+        `HybridGraph`) on its device: an ELL's buckets padded to a multiple
+        of the mesh size and sharded over the whole mesh; the tiled and
+        hybrid layouts as `tiled_spec` and `hybrid_spec` give them."""
+        if isinstance(ell, TiledGraph):
+            return self.tiled_spec(ell).to(self.mesh.device)
+        if isinstance(ell, HybridGraph):
+            return self.hybrid_spec(ell).to(self.mesh.device)
         if not isinstance(ell, EllGraph):
-            raise TypeError(f"place_ell takes an EllGraph, got {type(ell).__name__}")
+            raise TypeError(f"place_ell takes an EllGraph, TiledGraph or HybridGraph, got "
+                            f"{type(ell).__name__}")
+        return self._local_ell(ell).to(self.mesh.device)
+
+    def _local_ell(self, ell: EllGraph) -> EllGraph:
+        """This rank's shard of an ELL (CPU tensors)."""
         n = self.mesh.size
-        sharded = shard_ell_graph(pad_ell_graph(ell.to("cpu"), n), n)
-        return sharded.local(self.mesh.rank).to(self.mesh.device)
+        return shard_ell_graph(pad_ell_graph(ell.to("cpu"), n), n).local(self.mesh.rank)
 
-    def tiled_spec(self, tg: Any):
-        raise NotImplementedError(
-            "the tiled layout's column-sharded hub blocks on a mesh are ROADMAP.md A7b; the "
-            "Trainer replicates the tiled layout")
+    def dense_cols(self, cols: int) -> Optional[Tuple[int, int]]:
+        """[lo, hi): this rank's columns of a dense block of ``cols``
+        columns, or None where they do not divide by the mesh size (the
+        block stays whole)."""
+        n = self.mesh.size
+        if cols == 0 or cols % n:
+            return None
+        c = cols // n
+        return self.mesh.rank * c, (self.mesh.rank + 1) * c
 
-    def hybrid_spec(self, hg: Any):
-        raise NotImplementedError(
-            "the hybrid layout's column-sharded dense blocks on a mesh are ROADMAP.md A7b; "
-            "the Trainer replicates the hybrid layout")
+    def tiled_spec(self, tg: TiledGraph) -> TiledGraph:
+        """This rank's part of a TiledGraph, on the layout's device but for
+        the residual shards and ``occ`` (CPU): per direction the residual
+        ELL sharded as `place_ell` shards an ELL, and the (G·rows_g, C)
+        hub block's columns [lo, hi) of every group, with the (G, C/size)
+        slices of ``top_src`` and ``slot_w`` and an ``occ`` side built over
+        them, so that its backward returns the rank's partial of the hub
+        rows' cotangents; or, where C does not divide, the whole block,
+        added by rank 0 alone."""
+        def part(d):
+            d = dataclasses.replace(d, residual=self._local_ell(d.residual))
+            cols = self.dense_cols(d.cols)
+            if cols is None:
+                return dataclasses.replace(d, adds_dense=self.mesh.rank == 0)
+            lo, hi = cols
+            top, slot_w = d.top_src[:, lo:hi].cpu(), d.slot_w[:, lo:hi].cpu()
+            return dataclasses.replace(
+                d, dense=d.dense[:, lo:hi].contiguous(), top_src=top.contiguous(),
+                slot_w=slot_w.contiguous(), cols=hi - lo,
+                occ=occ_side(top.numpy(), slot_w.numpy(), d.occ.n_rows))
+
+        return dataclasses.replace(tg, user_from_item=part(tg.user_from_item),
+                                   item_from_user=part(tg.item_from_user))
+
+    def hybrid_spec(self, hg: HybridGraph) -> HybridGraph:
+        """This rank's part of a HybridGraph: per direction the residual
+        ELL sharded as `place_ell` shards an ELL (CPU), and the (n_dst, C)
+        dense block's columns [lo, hi) with their hub ids (distinct: the
+        backward's `index_add_` still adds once into each row) and their
+        nonzero cells; or, where C does not divide, the whole block, added
+        by rank 0 alone."""
+        def part(d):
+            d = dataclasses.replace(d, residual=self._local_ell(d.residual))
+            cols = self.dense_cols(d.top_src.numel())
+            if cols is None:
+                return dataclasses.replace(d, adds_dense=self.mesh.rank == 0)
+            lo, hi = cols
+            cell = (d.dense_col >= lo) & (d.dense_col < hi)
+            return dataclasses.replace(
+                d, dense=d.dense[:, lo:hi].contiguous(), top_src=d.top_src[lo:hi].contiguous(),
+                dense_dst=d.dense_dst[cell], dense_col=d.dense_col[cell] - lo)
+
+        return dataclasses.replace(hg, user_from_item=part(hg.user_from_item),
+                                   item_from_user=part(hg.item_from_user))
 
     # -------------------------------------------------------------- batch
     def batch_spec(self, batch: int) -> slice:
@@ -185,11 +252,11 @@ class GraphShardings:
 
     # -------------------------------------------------------------- model
     def place_model(self, model) -> None:
-        """Shard ``model`` in place: its ELL layout becomes this rank's
-        shard, completed by a psum after every layer, and its tables this
-        rank's rows (of the parameters it holds now). Other layouts and
-        the i2i graph stay whole (replicated)."""
-        if isinstance(model.ell, EllGraph):
+        """Shard ``model`` in place: its layout (ELL, tiled or hybrid)
+        becomes this rank's part (`place_ell`), completed by a psum after
+        every layer, and its tables this rank's rows (of the parameters it
+        holds now). The i2i graph stays whole (replicated)."""
+        if isinstance(model.ell, (EllGraph, TiledGraph, HybridGraph)):
             model.ell = self.place_ell(model.ell)
             model.layer_sum = functools.partial(psum, self.mesh)
         self._keep_rows(model)

@@ -22,7 +22,9 @@ On a ``data_axis × model_axis`` mesh (`cfg.parallel`, one process per
 rank in an initialized process group) the model is sharded in place
 (`gsrs_tpu_torch.parallel.sharding.GraphShardings.place_model`: table
 rows over ``model``, ELL edge slots over the mesh; the tiled and hybrid
-layouts stay whole, as the JAX Trainer replicates them). Every rank
+layouts' residual edge slots over the mesh and their dense hub blocks by
+columns, where the JAX Trainer replicates those two layouts: the same
+sums, a fraction of the blocks a rank). Every rank
 samples the same global batches and steps on its data slice
 (`gsrs_tpu_torch.parallel.dist_train.mesh_step`); the evaluator scores
 catalog shards. Rank 0 prints, logs and writes the checkpoints, whose

@@ -95,27 +95,25 @@ def test_set_seed_pins_the_global_streams():
 
 @pytest.mark.parametrize("spmm,item", [("tiled", "A7b"), ("hybrid", "A7b"), ("ell", None)])
 def test_unported_flags_raise_naming_their_item(spmm, item):
-    """Every flag runs on a mesh now (the Trainer replicates the tiled and
-    hybrid layouts); only the standalone mesh step's column-sharded dense
-    blocks of those two layouts are still to come, and raise naming
-    their ROADMAP.md item."""
+    """Every flag runs on a mesh: the standalone mesh step takes every
+    layout, the tiled and hybrid ones since their ROADMAP.md item (A7b)
+    shards their dense blocks; a layout left unplaced on a mesh of more
+    than one rank is refused, naming what to do."""
     from gsrs_tpu_torch import config as tcfg
     from gsrs_tpu_torch.data import adjacency as tadj
     from gsrs_tpu_torch.models.registry import build_model
     from gsrs_tpu_torch.parallel.dist_train import make_train_step
-    from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+    from gsrs_tpu_torch.parallel.mesh import Mesh, single_device_mesh
     from gsrs_tpu_torch.train.optim import ScheduledAdam
 
     data = tsyn.clustered(30, 40, seed=0)
     cfg = tcfg.ModelConfig(num_layers=1, embedding_dim=4, spmm_mode=spmm, tiled_groups=2,
                            tiled_cols=8, hybrid_cols=8)
     model = build_model(cfg, tadj.build_graph(data, edge_pad_multiple=256), device=CPU)
-    args = (model, ScheduledAdam(lambda c: 1e-3), single_device_mesh(CPU), 0.0)
-    if item is None:
-        assert callable(make_train_step(*args))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        make_train_step(*args)
+    optimizer = ScheduledAdam(lambda c: 1e-3)
+    assert callable(make_train_step(model, optimizer, single_device_mesh(CPU), 0.0))
+    with pytest.raises(ValueError, match="place_model"):
+        make_train_step(model, optimizer, Mesh(2, 1, 0, torch.device(CPU)), 0.0)
 
 
 def test_the_shell_entry_point_raises_without_a_card():

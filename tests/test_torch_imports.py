@@ -51,7 +51,8 @@ def test_port_imports_nothing_of_jax():
                  "utils.batching", "data.movielens", "data.instacart", "native",
                  "native.build", "parallel", "parallel.mesh", "parallel.collectives",
                  "parallel.launch", "parallel.sharding", "parallel.dist_train",
-                 "parallel.shard_map_train", "parallel.seq_sharding", "parallel.dryrun"):
+                 "parallel.shard_map_train", "parallel.seq_sharding", "parallel.dryrun",
+                 "stress_pod"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"

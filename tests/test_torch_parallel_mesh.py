@@ -136,8 +136,8 @@ def test_distributed_init_rejects_partial_explicit_config(monkeypatch):
 def test_shardings_say_which_rows_each_rank_holds():
     """The layouts' row ranges on a 2 × 3 mesh (no process group needed):
     tables split over ``model``, batches over ``data``, replicated
-    parameters whole; an uneven table or batch is refused, naming what to
-    do."""
+    parameters whole, dense hub blocks' columns over the whole mesh; an
+    uneven table or batch is refused, naming what to do."""
     from gsrs_tpu_torch.parallel.seq_sharding import SeqShardings, slice_rows
     from gsrs_tpu_torch.parallel.sharding import GraphShardings, catalog_range, rows_of
 
@@ -165,8 +165,10 @@ def test_shardings_say_which_rows_each_rank_holds():
         rows_of(10, Mesh(1, 3, 0, torch.device("cpu")))
     with pytest.raises(ValueError, match="data axis"):
         GraphShardings(Mesh(2, 1, 0, torch.device("cpu"))).batch_spec(7)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        GraphShardings(Mesh(2, 1, 0, torch.device("cpu"))).tiled_spec(None)
+    # a dense hub block's columns: C/size contiguous ones a rank, whole where C does not divide
+    assert [GraphShardings(Mesh(2, 3, r, torch.device("cpu"))).dense_cols(12)
+            for r in range(6)] == [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10), (10, 12)]
+    assert GraphShardings(Mesh(2, 3, 0, torch.device("cpu"))).dense_cols(10) is None
     draws = (torch.arange(8), [torch.ones(8, 2)], None)
     cut = slice_rows(draws, slice(2, 4))
     assert torch.equal(cut[0], torch.tensor([2, 3])) and cut[1][0].shape == (2, 2)
