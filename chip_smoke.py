@@ -19,9 +19,13 @@
    slots and one that is padding after slot 1 (S = the split length: rows
    longer go through the kernel's second pass); two calls on the same
    inputs must be bitwise equal; and at the TPU probe's shape against the
-   probe's own oracle. Fused Adam (K3) over 3 steps across an lr
-   milestone, fp32 and bf16, on an odd element count (37 × 11) and on the
-   Gowalla-shaped tables.
+   probe's own oracle. Fused Adam (K3), one launch over all the leaves of
+   a step, bit for bit against its plain version in fp32 and bf16 over 3
+   steps across an lr milestone: one leaf each of 37 × 11 (a ragged end)
+   and of the Gowalla-shaped tables; NGCF's 14 leaves at full width in fp32
+   and in bf16; one launch mixing fp32 and bf16 leaves with a leaf whose
+   gradient is None; views at storage offset 1 (the scalar path); 70
+   leaves (two launches a step, counted).
 4. Serving phase, LightGCN at Gowalla's shape (a seeded power-law
    stand-in: 29,858 users × 40,981 items, average degree 27), 3 layers at
    dim 64, fp32, seeded weights: build the graph, propagate, build the
@@ -61,7 +65,7 @@
    periodic saves every 2, keep-top-1), which must write the JAX
    trainer's CSVs, checkpoint listing and ``model_meta.json`` and launch
    K4 on the user, item and both i2i sides, K1 once per eval batch and K3
-   once per leaf per step. A ``--resume`` to 4 epochs must start at epoch
+   once per step (⌈leaves/64⌉ launches). A ``--resume`` to 4 epochs must start at epoch
    3 and end within 1e-6 of an uninterrupted 4-epoch run, the first run's
    trainer taking a fourth epoch in memory (bitwise equality logged;
    evals draw no randomness, so its missing eval changes nothing);
@@ -80,7 +84,7 @@
    calls bitwise equal, K4 against its plain version on both residual
    sides of both directions, device time of the layer, of each dense
    product beside its bound and of each K4 residual side); K1 at d = 256
-   and K3 over NGCF's 14 leaves timed; each model and layout (MF, NGCF,
+   timed; each model and layout (MF, NGCF,
    XSimGCL, UltraGCN `full` and `pool` with `ug_sift_pos`, LightGCN on
    the hybrid and segment layouts) on the card against the CPU for 3
    steps on a 1,500 × 2,000 graph at three seeds (losses, the first
@@ -88,8 +92,8 @@
    with K3's bias correction one step late, which must fail the
    parameter check); then, counted, each through
    `gsrs_tpu_torch.cli.main` for one whole epoch with an eval before and
-   after it, launching K1 once per eval batch, K3 once per leaf per step
-   and K4 on every side of its layout (none without one), and after it,
+   after it, launching K1 once per eval batch, K3 once per step and K4
+   on every side of its layout (none without one), and after it,
    uncounted, 5 more steps under torch.profiler (wall and device µs a
    step, busy share, the costliest device rows).
 11. Seq phase, the sequential family (SASRec, GRU4Rec, BERT4Rec) at the
@@ -123,7 +127,8 @@
    metrics, top-20), with a control (the model-axis copies not divided
    out: the loss doubles) that must fail the loss limit; SASRec through
    `seq_cli` on the same mesh against the card. Every rank must launch
-   K4, K1 and K3. Readings: ms a mesh step, its collectives' wall time
+   K4, K1 and K3 (K3 once per step of its CLI run and resume). Readings:
+   ms a mesh step, its collectives' wall time
    (gloo: host-staged, not NVLink), each rank's K4 side and K1 shard
    against the single card's whole tables. The same ranks then run the
    tiled and hybrid layouts, their dense blocks column-sharded
@@ -142,14 +147,17 @@
 13. Stress phase, ``python -m gsrs_tpu_torch.stress_pod`` through its
    `main`: BASELINE config 5's plan on H100s (``--plan_only --chip
    h100``), one counted run on the card at 1M users x 500k items, dim 256
-   (K4, K3, K1 launched; its peak device memory beside the plan's total),
+   (K4, K1 launched, K3 once per step; its peak device memory beside the plan's total),
    K1 timed at its eval's shape, then ``--smoke`` on four gloo ranks.
 14. Times each kernel by its device time (the kernels' own time in
    torch.profiler's device-side events over a window of launches, after a
    warm-up; CUDA events around the same calls are logged beside it where
    the two differ by more than 10%) beside its bound, its plain version
-   and one PyTorch call (K3 and the library's Adam on copies of their
-   tables that cycle through more than the L2, as in a train step), and
+   and one PyTorch call (K3 as one launch over the leaves of a step: the
+   two tables, the CLI run's 10 leaves and NGCF's 14, beside the library's
+   Adam over the same leaves and the same leaves as one-leaf launches, on
+   copies that cycle through more than the L2, as in a train step; and
+   the host µs of a `FusedAdam.step` call), and
    the end-to-end numbers: request latency,
    propagation forward and forward + backward, ms per step, seconds per
    epoch and per eval, peak device memory, and the device's busy share
@@ -188,7 +196,6 @@ ELL_ATOL = 1e-5  # K4 fp32: sums of O(1) in another order
 # them): one rounding of that sum to bf16 (at most 2^-8 relative) ...
 ELL_BF16_RTOL = 2.0**-8
 ELL_BF16_ATOL = 1e-5  # ... plus the fp32 order difference near zero
-ADAM_ATOL = 2e-6  # K3 fp32 over 3 steps at lr 1e-2
 TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: parameters and losses
 METRIC_ATOL = 1e-6  # card vs CPU eval metrics
 # the tiled phase: bench.py's layout, and a small one for the card-vs-CPU steps
@@ -335,7 +342,7 @@ def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, warmup: int = 5) -> float:
+def device_ms(fn, reps: int, warmup: int = 5, events: Optional[int] = None) -> float:
     """Mean device milliseconds per call of ``fn``: the device time of the
     kernels and copies its ``reps`` calls launched (torch.profiler,
     device-side events only), so no host dispatch enters the figure.
@@ -343,10 +350,10 @@ def device_ms(fn, reps: int, warmup: int = 5) -> float:
     window (98 of 100 one-kernel calls), at times most of it (K3 once read
     2.6 µs for a 20 µs kernel) or all of it. So the time a call is the
     window's device time over the calls it saw, ``n / c`` for ``n``
-    events of ``c`` (the nearest whole count, at least 1) a call, and a
-    window that lost more than 3% of ``c · reps`` is profiled again, up
-    to three times in all; then the fullest one is taken, and one with no
-    event fails."""
+    events of ``c`` (``events`` where the caller knows it, else the
+    nearest whole count, at least 1) a call, and a window that lost more
+    than 3% of ``c · reps`` is profiled again, up to three times in all;
+    then the fullest one is taken, and one with no event fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -360,7 +367,7 @@ def device_ms(fn, reps: int, warmup: int = 5) -> float:
             torch.cuda.synchronize()
         rows = device_rows(prof)
         n = sum(c for _, _, c in rows)
-        per_call = max(1, round(n / reps))
+        per_call = events or max(1, round(n / reps))
         windows.append((n, sum(t for _, t, _ in rows), per_call))
         if n >= 0.97 * per_call * reps:
             break
@@ -387,16 +394,38 @@ def device_rows(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def kernel_ms(fn, reps: int, what: str, warmup: int = 5) -> dict:
+def kernel_ms(fn, reps: int, what: str, warmup: int = 5, events: Optional[int] = None) -> dict:
     """{"ms": device time per call (`device_ms`), "events_ms": CUDA events
     around the same number of back-to-back calls}. The events also time
     the host's enqueue of each call; where they differ from the device
     time by more than 10%, both are logged."""
-    t = dict(ms=device_ms(fn, reps, warmup), events_ms=cuda_ms(fn, reps, warmup))
+    t = dict(ms=device_ms(fn, reps, warmup, events), events_ms=cuda_ms(fn, reps, warmup))
     if abs(t["events_ms"] - t["ms"]) > 0.1 * t["ms"]:
         log(f"[time] {what}: device {t['ms'] * 1e3:.1f} us a call, CUDA events "
             f"{t['events_ms'] * 1e3:.1f} us")
     return t
+
+
+def events_per_call(fn, reps: int = 10) -> int:
+    """The device events one call of ``fn`` makes, where the caller cannot
+    count them: after ``reps`` calls of warm-up (a fresh optimizer's first
+    step also fills its moments), each kernel's count is the most it
+    reached in three windows of ``reps`` calls, since the profiler drops
+    events but adds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(reps):
+        fn()
+    most = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for name, _, count in device_rows(prof):
+            most[name] = max(most.get(name, 0), count)
+    return max(1, round(sum(most.values()) / reps))
 
 
 def cold_copies(make, nbytes: int):
@@ -405,6 +434,68 @@ def cold_copies(make, nbytes: int):
     twice the L2: a call timed on the next copy reads HBM, as it does
     inside a train step."""
     return itertools.cycle([make() for _ in range(1 + -(-2 * L2_BYTES // nbytes))])
+
+
+def adam_step_times(dev, spec, reps: int = 50, calls: int = 300,
+                    bound_ms: Optional[float] = None) -> dict:
+    """`FusedAdam(backend="pallas").step` over leaves ``spec`` [(shape,
+    dtype)], reached only through `FusedAdam` and ``LAUNCHES`` (so it also
+    times another checkout of the port, put first on ``sys.path``) →
+    {"launches": K3's launches a step, "ms": device time of a step (each
+    on the next of `cold_copies`, as a train step finds its leaves; timed
+    again, up to three times, while under ``bound_ms``), "events_ms",
+    "host_us": host µs of a call, ``perf_counter`` around `step` with no
+    synchronize, mean of ``calls`` after 20 (the queue drained every 50
+    calls, outside the clock)}."""
+    from gsrs_tpu_torch.train.fused_adam import LAUNCHES, FusedAdam
+
+    opt = FusedAdam(schedule=lambda count: 1e-3, backend="pallas")
+
+    def copy():
+        params = {f"leaf{i}": torch.nn.Parameter((0.1 * torch.randn(s, device=dev)).to(dt))
+                  for i, (s, dt) in enumerate(spec)}
+        grads = [(1e-3 * torch.randn(s, device=dev)).to(dt) for s, dt in spec]
+        return [params, grads, opt.init(params)]
+
+    def step(c):
+        for p, g in zip(c[0].values(), c[1]):
+            p.grad = g
+        c[2] = opt.step(c[0], c[2])
+
+    nbytes = sum(4 * int(np.prod(s)) * torch.tensor([], dtype=dt).element_size()
+                 for s, dt in spec)
+    copies = cold_copies(copy, nbytes)
+    c = next(copies)
+    before = LAUNCHES["fused_adam"]
+    step(c)
+    launches = LAUNCHES["fused_adam"] - before
+    total = 0.0
+    for i in range(20 + calls):
+        if i % 50 == 0:
+            torch.cuda.synchronize(dev)
+        for p, g in zip(c[0].values(), c[1]):
+            p.grad = g
+        t0 = time.perf_counter()
+        c[2] = opt.step(c[0], c[2])
+        if i >= 20:
+            total += time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    t = timed_over_bound(lambda: step(next(copies)), reps, f"FusedAdam.step {len(spec)} leaves",
+                         max(1, launches), bound_ms)
+    return dict(launches=launches, host_us=1e6 * total / calls, **t)
+
+
+def timed_over_bound(fn, reps: int, what: str, events: int,
+                     bound_ms: Optional[float] = None) -> dict:
+    """`kernel_ms`, timed again, up to three times in all, while it reads
+    under ``bound_ms``: the profiler misreported that window."""
+    for _ in range(3):
+        t = kernel_ms(fn, reps, what, events=events)
+        if bound_ms is None or t["ms"] >= bound_ms:
+            break
+        log(f"[time] {what}: {t['ms'] * 1e3:.1f} us is under the HBM bound "
+            f"{bound_ms * 1e3:.1f} us: timing again")
+    return t
 
 
 def roofline(nbytes: float, flops: float):
@@ -437,6 +528,20 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: n for c in counters() for name, n in c.items()}
+
+
+def epoch_steps(trainer) -> int:
+    """The steps of one `Trainer.train_epoch`: its ``epoch_samples``
+    (default the train size) in whole batches."""
+    epoch_size = trainer.epoch_samples or trainer.data.train_size
+    return max(1, -(-epoch_size // trainer.cfg.train.batch_size))
+
+
+def adam_launches_per_step(model) -> int:
+    """K3's launches in one step of ``model``: one per 64 leaves."""
+    from gsrs_tpu_torch.train.fused_adam import MAX_LEAVES
+
+    return -(-len(list(model.parameters())) // MAX_LEAVES)
 
 
 # ------------------------------------------------------------- kernel phase
@@ -826,13 +931,80 @@ def probe_check(dev) -> None:
         f"{us:.1f} us/launch, {M / us:.0f} M gathered rows/s")
 
 
+def ngcf_leaf_shapes(graph, ell, dev) -> list:
+    """The leaf shapes of an NGCF step at full width, read from the port's
+    NGCF (3 layers of 64) on ``graph``: the two tables, then W1, W2, b1, b2
+    a layer, 14 in all."""
+    from gsrs_tpu_torch.config import ModelConfig
+    from gsrs_tpu_torch.models.registry import build_model
+
+    model = build_model(ModelConfig(model="ngcf", num_layers=3, embedding_dim=64), graph, ell=ell,
+                        device=dev, generator=torch.Generator().manual_seed(SEED))
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def adam_table_check(dev, what: str, spec, g, missing=None, offset=()) -> float:
+    """K3 over the leaves ``spec`` [(shape, dtype)] against its plain
+    version (``backend="jnp"``) on the same card tensors: 3 steps across an
+    lr milestone through `FusedAdam.step`; leaf ``missing`` has no gradient
+    at steps 2 and 3, and the leaves ``offset`` are views at storage offset
+    1. Every parameter and moment must equal the plain version's bit for
+    bit, and the kernel must launch ⌈leaves/64⌉ times a step → the max abs
+    error over the fp32 leaves (0)."""
+    from gsrs_tpu_torch.config import TrainConfig
+    from gsrs_tpu_torch.train.fused_adam import LAUNCHES, MAX_LEAVES, FusedAdam
+    from gsrs_tpu_torch.train.optim import lr_schedule
+
+    sched = lr_schedule(TrainConfig(lr=1e-2, use_scheduler=True, sched_milestones=(2,),
+                                    sched_gamma=0.5), 1)
+    p0 = [(0.1 * torch.randn(s, device=dev, generator=g)).to(dt) for s, dt in spec]
+    grads = [[torch.randn(s, device=dev, generator=g).to(dt) for s, dt in spec]
+             for _ in range(3)]
+    runs = []
+    for backend in ("pallas", "jnp"):
+        params = {}
+        for i, p in enumerate(p0):
+            q = p.clone()
+            if i in offset:
+                base = torch.empty(p.numel() + 1, dtype=p.dtype, device=dev)
+                base[1:] = p.flatten()
+                q = base[1:].view(p.shape)
+                check(q.data_ptr() % 16 != 0, f"fused_adam {what}: leaf {i} is aligned")
+            params[f"leaf{i}"] = torch.nn.Parameter(q)
+        opt = FusedAdam(schedule=sched, backend=backend)
+        st = opt.init(params)
+        before = LAUNCHES["fused_adam"]
+        for step, gr in enumerate(grads):
+            for i, p in enumerate(params.values()):
+                p.grad = None if (i == missing and step > 0) else gr[i].clone()
+            st = opt.step(params, st)
+        torch.cuda.synchronize()
+        runs.append(([t for k, p in params.items() for t in (p.detach(), st.mu[k], st.nu[k])],
+                     LAUNCHES["fused_adam"] - before))
+    (got, launched), (want, plain_launched) = runs
+    per_step = -(-len(spec) // MAX_LEAVES)
+    check(launched == 3 * per_step and plain_launched == 0,
+          f"fused_adam {what}: {launched} launches in 3 steps, not {3 * per_step}")
+    dts = [dt for _, dt in spec for _ in range(3)]  # of p, m and v of each leaf
+    check(all(a.dtype == b.dtype == dt for a, b, dt in zip(got, want, dts)),
+          f"fused_adam {what}: dtypes differ")
+    errs = {dt: max((float((a.float() - b.float()).abs().max())
+                     for a, b, d in zip(got, want, dts) if d == dt), default=0.0)
+            for dt in (torch.float32, torch.bfloat16)}
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(equal, f"fused_adam {what}: not bitwise the plain version's (max abs err fp32 "
+          f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e})")
+    log(f"[kernel] fused_adam {what}: {len(spec)} leaves, {per_step} launch(es) a step, 3 "
+        f"steps across a milestone: parameters and moments bit for bit the plain version's "
+        f"(max abs err fp32 {errs[torch.float32]:.1e}, bf16 {errs[torch.bfloat16]:.1e})")
+    return errs[torch.float32]
+
+
 def kernel_phase_train(dev, data) -> dict:
     """K4 and K3 against their plain versions on the card → {kernel: max
     abs err in fp32 at the main path's shapes}."""
-    from gsrs_tpu_torch.config import TrainConfig
+    from gsrs_tpu_torch.data.adjacency import build_graph
     from gsrs_tpu_torch.ops.ell import ell_from_interactions
-    from gsrs_tpu_torch.train.fused_adam import FusedAdam
-    from gsrs_tpu_torch.train.optim import lr_schedule
 
     ell = ell_from_interactions(data).to(dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -851,32 +1023,25 @@ def kernel_phase_train(dev, data) -> dict:
     split_row_checks(dev)
     probe_check(dev)
 
-    sched = lr_schedule(TrainConfig(lr=1e-2, use_scheduler=True, sched_milestones=(2,),
-                                    sched_gamma=0.5), 1)
     adam_err = 0.0
     for shape in ((37, 11), (data.n_users, 64), (data.m_items, 64)):
         for dtype in (torch.float32, torch.bfloat16):
-            p0 = (0.1 * torch.randn(shape, device=dev, generator=g)).to(dtype)
-            grads = [torch.randn(shape, device=dev, generator=g).to(dtype) for _ in range(3)]
-            out = []
-            for backend in ("pallas", "jnp"):
-                p = torch.nn.Parameter(p0.clone())
-                opt = FusedAdam(schedule=sched, backend=backend)
-                st = opt.init({"p": p})
-                for gr in grads:
-                    p.grad = gr.clone()
-                    st = opt.step({"p": p}, st)
-                out.append((p.detach(), st.mu["p"], st.nu["p"]))
-            torch.cuda.synchronize()
-            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*out))
-            check(all(a.dtype == b.dtype == dtype for a, b in zip(*out)),
-                  f"fused_adam {shape} {dtype}: dtypes differ")
-            if dtype == torch.float32:
-                check(err <= ADAM_ATOL, f"fused_adam {shape}: max abs err {err} > {ADAM_ATOL}")
-                if shape[1] == 64:
-                    adam_err = max(adam_err, err)
-            log(f"[kernel] fused_adam {shape} {str(dtype)[6:]} 3 steps across a milestone: "
-                f"max abs err {err:.3e}")
+            err = adam_table_check(dev, f"{shape} {str(dtype)[6:]}", [(shape, dtype)], g)
+            if dtype == torch.float32 and shape[1] == 64:
+                adam_err = max(adam_err, err)
+    ngcf = ngcf_leaf_shapes(build_graph(data), ell, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        adam_table_check(dev, f"NGCF's 14 leaves {str(dtype)[6:]}", [(s, dtype) for s in ngcf], g)
+    mixed = [(s, (torch.float32, torch.bfloat16)[i % 2]) for i, s in enumerate(ngcf)]
+    adam_table_check(dev, "NGCF's 14 leaves fp32/bf16 mixed, (37, 11) bf16, leaf 3 without "
+                     "gradient at steps 2-3", mixed + [((37, 11), torch.bfloat16)], g,
+                     missing=3)
+    adam_table_check(dev, "views at storage offset 1 (scalar path) beside aligned leaves",
+                     [((37, 11), torch.float32), ((64, 64), torch.float32),
+                      ((37, 11), torch.bfloat16), ((4099,), torch.bfloat16)], g, offset=(0, 2))
+    adam_table_check(dev, "70 leaves (two launches)",
+                     [((i % 9 + 1, 5 + i % 4), (torch.float32, torch.bfloat16)[i % 3 == 0])
+                      for i in range(70)], g)
     return {"ell_gather_reduce": ell_err, "fused_adam": adam_err}
 
 
@@ -954,8 +1119,13 @@ def training_phase(dev, data) -> dict:
     check(np.isfinite(loss0) and loss1 < loss0, f"epoch losses {loss0} -> {loss1} do not fall")
     check(launches["ell_gather_reduce"] >= 12 * steps_run,
           f"ell_gather_reduce launched {launches['ell_gather_reduce']} times in {steps_run} steps")
-    check(launches["fused_adam"] >= 2 * (2 * 20 + 2 * 3 + 2 * tr.steps_per_epoch),
-          f"fused_adam launched {launches['fused_adam']} times")
+    # K3 once a step (⌈leaves/64⌉ launches) in the "pallas" steps: 3 warm-up and 2 x 20 timed
+    # at 2048, 3 warm-up and two epochs at 8192
+    pallas_steps = 2 * 3 + 2 * 20 + 2 * tr.steps_per_epoch
+    per_step = adam_launches_per_step(tr.model)
+    check(launches["fused_adam"] == per_step * pallas_steps,
+          f"fused_adam launched {launches['fused_adam']} times in {pallas_steps} steps, not "
+          f"{per_step} a step")
     return dict(data=data, graph=graph, ell=ell, trainer=tr, state=state, ms=ms,
                 epoch_s=epoch_s, launches=launches, steps=steps_run, peak_mib=peak_mib)
 
@@ -1154,69 +1324,90 @@ def time_ell(model, launches: int, per_step: float, err: float) -> dict:
                 by_item_ms_at_split={str(k): v for k, v in sweep.items()}, **tot)
 
 
-def time_adam(model, launches: int, per_step: float, err: float, in_step_ms) -> dict:
-    """K3 per launch, averaged over the two tables of a step, by device
-    time; torch.optim.Adam(fused=True) over the same two tables in one
-    step, halved. Each call runs on the next of several copies of its
-    tables (`cold_copies`), so it reads HBM as in a train step, where K3's
-    time by the step's profile is ``in_step_ms``. The CUDA events figures
-    (host-bound for K3, whose wrapper's host work outlasts the kernel) are
-    kept beside them."""
-    from gsrs_tpu_torch.train.fused_adam import FusedAdam, _adam_math, fused_adam_
+def time_adam_leaves(dev, what: str, spec) -> dict:
+    """K3 over the leaves ``spec`` [(shape, dtype)] of a step through
+    `FusedAdam.step`, one launch, by device and host time
+    (`adam_step_times`), beside the bound of the step's bytes, the plain
+    version, torch.optim.Adam(fused=True) over the same leaves and the same
+    leaves as one-leaf launches (`fused_adam_`); each device reading on the
+    next of copies cycling through more than the L2 (`cold_copies`), as a
+    train step finds them."""
+    from gsrs_tpu_torch.train.fused_adam import MAX_LEAVES, _adam_math_, FusedAdam, fused_adam_
 
-    opt = FusedAdam(schedule=lambda c: 1e-3, backend="pallas")
-    lr, c1, c2 = opt.scalars(10)
-    tables = [p.detach() for p in (model.user_emb, model.item_emb)]
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    events = dict(ms=0.0, plain_ms=0.0)
-    for p in tables:
-        sets = cold_copies(lambda: (p.clone(), torch.zeros_like(p), torch.zeros_like(p),
-                                    torch.randn_like(p) * 1e-3), 4 * p.numel() * p.element_size())
-        bound_p = roofline(28 * p.numel(), 12 * p.numel())[0]
-        for _ in range(3):  # a window the profiler misreports reads under the bound: time again
-            t = kernel_ms(lambda: fused_adam_(*next(sets), lr, c1, c2, 0.9, 0.999, 1e-8), 100,
-                          f"fused_adam {tuple(p.shape)}")
-            if t["ms"] >= bound_p:
-                break
-            log(f"[time] fused_adam {tuple(p.shape)}: {t['ms'] * 1e3:.1f} us is under the "
-                f"table's HBM bound {bound_p * 1e3:.1f} us: timing again")
+    lr, c1, c2 = FusedAdam(schedule=lambda c: 1e-3, backend="pallas").scalars(10)
+    consts = (0.9, 0.999, 1e-8)
+    sizes = [(int(np.prod(s)), torch.tensor([], dtype=dt).element_size()) for s, dt in spec]
+    nbytes = sum(4 * n * e for n, e in sizes)  # p, m, v and g
 
-        def plain():
-            q, m, v, g = next(sets)
-            for dst, src in zip((q, m, v), _adam_math(q, m, v, g, lr, c1, c2, 0.9, 0.999, 1e-8)):
-                dst.copy_(src)
-
-        tp = kernel_ms(plain, 20, f"fused_adam plain {tuple(p.shape)}")
-        for k, tk in (("ms", t), ("plain_ms", tp)):
-            tot[k] += tk["ms"] / 2
-            events[k] += tk["events_ms"] / 2
-        tot["bound_ms"] += bound_p / 2
+    def leaves():
+        out = []
+        for s, dt in spec:
+            p, m, v, g = (torch.randn(s, device=dev) * 1e-3 for _ in range(4))
+            out.append(tuple(t.to(dt) for t in (p, m, v.abs(), g)))
+        return out
 
     def library():
-        params = [torch.nn.Parameter(p.clone()) for p in tables]
+        params = [torch.nn.Parameter(torch.randn(s, device=dev).to(dt)) for s, dt in spec]
         for q in params:
             q.grad = torch.randn_like(q) * 1e-3
         return torch.optim.Adam(params, lr=1e-3, fused=True)
 
-    libs = cold_copies(library, 4 * sum(p.numel() * p.element_size() for p in tables))
-    tl = kernel_ms(lambda: next(libs).step(), 100, "torch.optim.Adam(fused=True), both tables")
-    tot["library_ms"], events["library_ms"] = tl["ms"] / 2, tl["events_ms"] / 2
-    n = sum(p.numel() for p in tables)
-    in_step = "not measured" if in_step_ms is None else f"{in_step_ms * 1e3:.1f} us"
-    log(f"[time] fused_adam: {tot['ms'] * 1e3:.1f} us/launch device from HBM (2 launches, {n} "
-        f"elements a step; CUDA events {events['ms'] * 1e3:.1f} us; inside a train step "
-        f"{in_step}), bound {tot['bound_ms'] * 1e3:.1f} us (bytes) = "
-        f"{tot['bound_ms'] / tot['ms']:.2f} of its time, plain {tot['plain_ms'] * 1e3:.1f} us, "
-        f"torch.optim.Adam(fused=True) {2 * tot['library_ms'] * 1e3:.1f} us device a step for "
-        f"both tables (CUDA events {2 * events['library_ms'] * 1e3:.1f} us)")
-    check(tot["ms"] >= tot["bound_ms"], "fused_adam timed under its HBM bound: the tables did "
+    def plain():
+        for p, m, v, g in next(sets):
+            _adam_math_(p, m, v, g, lr, c1, c2, *consts)
+
+    bound_ms = roofline(sum(7 * n * e for n, e in sizes), 12 * sum(n for n, _ in sizes))[0]
+    t = adam_step_times(dev, spec, bound_ms=bound_ms)
+    per_step = -(-len(spec) // MAX_LEAVES)
+    check(t["launches"] == per_step, f"fused_adam {what}: {t['launches']} launches in a "
+          f"FusedAdam.step, not {per_step}")
+    sets, libs = cold_copies(leaves, nbytes), cold_copies(library, nbytes)
+    per_leaf = timed_over_bound(
+        lambda: [fused_adam_(*leaf, lr, c1, c2, *consts) for leaf in next(sets)], 50,
+        f"fused_adam one launch a leaf {what}", len(spec), bound_ms)
+    tl = timed_over_bound(lambda: next(libs).step(), 50, f"torch.optim.Adam(fused=True) {what}",
+                          events_per_call(lambda: next(libs).step()), bound_ms)
+    tp = kernel_ms(plain, 20, f"fused_adam plain {what}", events=events_per_call(plain, 5))
+    out = dict(leaves=len(spec), ms=t["ms"], events_ms=t["events_ms"], bound_ms=bound_ms,
+               per_leaf_ms=per_leaf["ms"], library_ms=tl["ms"], plain_ms=tp["ms"],
+               host_step_us=t["host_us"])
+    log(f"[time] fused_adam over {what} ({len(spec)} leaves, one launch): {out['ms'] * 1e3:.1f} "
+        f"us device from HBM, bound {bound_ms * 1e3:.1f} us (bytes) = "
+        f"{bound_ms / out['ms']:.2f} of it; torch.optim.Adam(fused=True) "
+        f"{out['library_ms'] * 1e3:.1f} us; one launch a leaf {out['per_leaf_ms'] * 1e3:.1f} us; "
+        f"plain {out['plain_ms'] * 1e3:.1f} us; host {t['host_us']:.1f} us a FusedAdam.step call")
+    check(out["ms"] >= bound_ms, f"fused_adam {what} timed under its HBM bound: the leaves did "
           "not leave the L2")
+    return out
+
+
+def time_adam(model, cli_model, launches: int, per_step: float, err: float,
+              in_step_ms) -> dict:
+    """K3's entry of the kernels line: one launch over the ELL step's two
+    tables (`time_adam_leaves`), whose time inside a train step by the
+    step's profile is ``in_step_ms``; beside it the same readings over the
+    CLI run's 10 leaves and NGCF's 14 at full width. Before this redesign
+    K3 took one launch a leaf: 77.0 us device over NGCF's 14 leaves
+    (PERF.md, PR 6's figure, not measured here)."""
+    dev = model.user_emb.device
+    f32 = torch.float32
+    sets = {
+        "the ELL step's 2 tables": [(tuple(p.shape), p.dtype) for p in model.parameters()],
+        "the CLI run's 10 leaves": [(tuple(p.shape), p.dtype) for p in cli_model.parameters()],
+        "NGCF's 14 leaves": [(s, f32) for s in ngcf_leaf_shapes(model.graph, model.ell, dev)],
+    }
+    times = {what: time_adam_leaves(dev, what, spec) for what, spec in sets.items()}
+    main = times["the ELL step's 2 tables"]
+    in_step = "not measured" if in_step_ms is None else f"{in_step_ms * 1e3:.1f} us"
+    log(f"[time] fused_adam inside a train step: {in_step} (one launch a step); PR 6's "
+        "one-launch-a-leaf kernel took 77.0 us over NGCF's 14 leaves (PERF.md)")
     return dict(name="fused_adam", route="cuda", source=SOURCES["fused_adam"],
                 replaces=REPLACES["fused_adam"], launches=launches, max_abs_err=err,
-                bound_by="bytes", launches_per_step=per_step, events_ms=events,
-                in_step_ms=in_step_ms,
+                bound_by="bytes", launches_per_step=per_step, in_step_ms=in_step_ms,
                 shape=[int(model.n_users) + int(model.m_items), int(model.cfg.embedding_dim)],
-                **tot)
+                **{k: main[k] for k in ("ms", "events_ms", "plain_ms", "bound_ms", "library_ms",
+                                        "per_leaf_ms", "host_step_us")},
+                leaf_sets=times)
 
 
 def time_training(dev, train: dict) -> dict:
@@ -1760,8 +1951,8 @@ def cli_phase(dev, data, out_dir: str) -> dict:
     n_leaves = len(list(model.parameters()))
     evals, n_batches = len(valid_rows), tr.evaluator._users.shape[0]
     sides = launches["sides"]
-    check(launches["fused_adam"] == n_leaves * steps,
-          f"fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves x {steps} "
+    check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
+          f"fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves in {steps} "
           "steps")
     check(launches["masked_scores"] == evals * n_batches,
           f"masked_scores launched {launches['masked_scores']} times for {evals} evals of "
@@ -1785,8 +1976,9 @@ def cli_phase(dev, data, out_dir: str) -> dict:
     # ---- resume to 4 epochs, against 4 epochs without a stop
     argv4 = cli_argv(root, ckpt, i2i_path, CLI_EPOCHS + 1)
     tr4, s4, l4, wall4 = cli_run(argv4 + ["--resume"], "resume to 4 epochs")
-    check(l4["fused_adam"] == n_leaves * tr4.steps_per_epoch,
-          f"the resumed run took {l4['fused_adam'] / n_leaves} steps, not one epoch")
+    check(l4["fused_adam"] == adam_launches_per_step(model) * tr4.steps_per_epoch,
+          f"the resumed run launched fused_adam {l4['fused_adam']} times, not once a step of "
+          "one epoch")
     rows = csv_rows(os.path.join(ckpt, "train_epoch_metrics.csv"))
     check([r["epoch"] for r in rows] == ["1", "2", "3", "4"], f"train CSV after resume {rows}")
     rows = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))  # epoch 3 evaluated again
@@ -2139,9 +2331,9 @@ def zoo_cli_runs(root: str) -> dict:
         check(launches["masked_scores"] == 2 * n_batches,
               f"{name}: masked_scores launched {launches['masked_scores']} times for 2 evals of "
               f"{n_batches} batches")
-        check(launches["fused_adam"] == n_leaves * steps,
-              f"{name}: fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves x "
-              f"{steps} steps")
+        check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
+              f"{name}: fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves "
+              f"in {steps} steps")
         sides = launches["sides"]
         layers = model.cfg.num_layers
         for side, n in sides.items():
@@ -2314,48 +2506,6 @@ def zoo_card_vs_cpu(dev) -> dict:
     return out
 
 
-def time_ngcf_adam(dev) -> dict:
-    """K3 over an NGCF step's leaves at full width (the two tables and 4
-    small leaves a layer, 14 in all) by device time, from copies cycling
-    through more than the L2, beside the bound of the step's bytes and the
-    library's fused Adam over the same leaves."""
-    from gsrs_tpu_torch.train.fused_adam import FusedAdam, fused_adam_
-
-    n, m, d, K = GOWALLA_SHAPE["n_users"], GOWALLA_SHAPE["m_items"], 64, 3
-    shapes = [(n, d), (m, d)] + [s for _ in range(K) for s in ((d, d), (d, d), (d,), (d,))]
-    lr, c1, c2 = FusedAdam(schedule=lambda c: 1e-3, backend="pallas").scalars(10)
-    nbytes = 4 * 4 * sum(int(np.prod(s)) for s in shapes)
-
-    def leaves():
-        return [tuple(torch.randn(s, device=dev) * 1e-3 for _ in range(4)) for s in shapes]
-
-    sets = cold_copies(leaves, nbytes)
-
-    def step():
-        for p, mu, nu, g in next(sets):
-            fused_adam_(p, mu, nu, g, lr, c1, c2, 0.9, 0.999, 1e-8)
-
-    def library():
-        params = [torch.nn.Parameter(torch.randn(s, device=dev)) for s in shapes]
-        for q in params:
-            q.grad = torch.randn_like(q) * 1e-3
-        return torch.optim.Adam(params, lr=1e-3, fused=True)
-
-    libs = cold_copies(library, nbytes)
-    t = kernel_ms(step, 50, "fused_adam NGCF step")
-    tl = kernel_ms(lambda: next(libs).step(), 50, "torch.optim.Adam(fused=True) NGCF step")
-    small = [s for s in shapes if s != (n, d) and s != (m, d)]
-    n_el = sum(int(np.prod(s)) for s in shapes)
-    out = dict(ms=t["ms"], events_ms=t["events_ms"], library_ms=tl["ms"],
-               bound_ms=roofline(28 * n_el, 12 * n_el)[0], leaves=len(shapes),
-               small_leaves=[list(s) for s in small])
-    log(f"[time] fused_adam over NGCF's {len(shapes)} leaves a step: {out['ms'] * 1e3:.1f} us "
-        f"device (CUDA events {out['events_ms'] * 1e3:.1f} us), bound "
-        f"{out['bound_ms'] * 1e3:.1f} us (bytes), torch.optim.Adam(fused=True) "
-        f"{out['library_ms'] * 1e3:.1f} us")
-    return out
-
-
 def time_k1_at(dev, B: int, d: int, m: int, what: str) -> dict:
     """K1 on random (B, d) users, (m, d) items and (B, ⌈m/32⌉) bitset words,
     held against its plain version on them (`compare`), by device time
@@ -2394,12 +2544,11 @@ def zoo_phase(dev, data, ell, out_dir: str) -> dict:
     seg = segment_checks(dev, data, ell)
     hyb = hybrid_checks(dev, data, ell)
     k1 = time_k1_d256(dev)
-    adam = time_ngcf_adam(dev)
     vs_cpu = zoo_card_vs_cpu(dev)
     cli_runs = zoo_cli_runs(out_dir)
     launches = {k: sum(r["launches"][k] for r in cli_runs["runs"].values())
                 for k in ("masked_scores", "ell_gather_reduce", "fused_adam")}
-    return dict(segment=seg, hybrid=hyb, k1_d256=k1, ngcf_adam=adam, card_vs_cpu=vs_cpu,
+    return dict(segment=seg, hybrid=hyb, k1_d256=k1, card_vs_cpu=vs_cpu,
                 launches=launches, **cli_runs)
 
 
@@ -3184,10 +3333,12 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
     torch.cuda.synchronize()
     out["cli"] = dict(wall_s=time.perf_counter() - t0, epoch=first_state.epoch,
                       launches=read_counts(), n_users=first.data.n_users,
-                      m_items=first.data.m_items)
+                      m_items=first.data.m_items, steps=epoch_steps(first),
+                      adam_per_step=adam_launches_per_step(first.model))
     zero_counts()
     trainer, state = cli.main(mesh_cli_argv(root, ckpt, 2, MESH_BATCH, resume=True), device)
-    out["resume"] = dict(epoch=state.epoch, launches=read_counts())
+    out["resume"] = dict(epoch=state.epoch, launches=read_counts(),
+                         steps=epoch_steps(trainer))
     # the resumed run against the first run's trainer taking that epoch in memory
     first.epoch_samples = MESH_BATCH
     first_state, _ = first.train_epoch(first_state)
@@ -3438,6 +3589,11 @@ def mesh_phase(dev, out_dir: str) -> dict:
         check(out["seq"]["launches"]["masked_scores"] > 0, f"rank {r}: the seq eval had no K1")
         check(out["cli"]["epoch"] == 1 and out["resume"]["epoch"] == 2,
               f"rank {r}: epochs {out['cli']['epoch']}, {out['resume']['epoch']}")
+        for run in ("cli", "resume"):  # K3 once a step over the rank's leaves
+            check(out[run]["launches"]["fused_adam"]
+                  == out["cli"]["adam_per_step"] * out[run]["steps"],
+                  f"rank {r}: fused_adam launched {out[run]['launches']['fused_adam']} times in "
+                  f"the {run} run's {out[run]['steps']} steps")
     check((first["cli"]["n_users"], first["cli"]["m_items"]) == (data.n_users, data.m_items),
           "the mesh padded its data otherwise")
     # mesh against the single card, the same parameters and batches
@@ -3607,6 +3763,10 @@ def stress_phase(dev) -> dict:
     for name in KERNELS:
         check(launches[name] > 0 and res["launches"][name] == launches[name],
               f"the stress run launched {launches[name]} {name} ({res['launches']})")
+    (model,) = built
+    steps = 1 + stress_pod.build_parser().parse_args(STRESS_RUN).steps  # the first, then timed
+    check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
+          f"the stress run launched fused_adam {launches['fused_adam']} times in {steps} steps")
     mem = res["memory"]
     log(f"[stress] {res['edges']} edges, 1M x 500k x 256 on one card: {wall_s:.1f} s, of it "
         f"the build and first step {res['build_s']} s; train step "
@@ -3616,7 +3776,6 @@ def stress_phase(dev) -> dict:
         f"GiB; launches {launches}")
     # K4 at the run's width (d = 256 in bf16: four columns a thread, two passes of the column
     # loop) on both sides of the run's ELL, then K1 at the eval's shape
-    (model,) = built
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     k4 = {}
     with torch.no_grad():
@@ -3635,6 +3794,10 @@ def stress_phase(dev) -> dict:
     smoke_s = time.perf_counter() - t0
     for name in KERNELS:
         check(small["launches"][name] > 0, f"the stress smoke's rank 0 launched no {name}")
+    steps = 1 + stress_pod.build_parser().parse_args(STRESS_SMOKE).steps
+    check(small["launches"]["fused_adam"] == steps,  # LightGCN's two tables: one launch a step
+          f"the stress smoke's rank 0 launched fused_adam {small['launches']['fused_adam']} "
+          f"times in {steps} steps")
     log(f"[stress] --smoke on 4 gloo ranks: {smoke_s:.1f} s; rank 0's launches "
         f"{small['launches']}")
     return dict(plan={k: plan[k] for k in ("mesh", "fits", "min_model_axis_for_fit",
@@ -3720,11 +3883,11 @@ def main() -> int:
                      + ev["launches"][name] + tiled["launches"][name] + cli["launches"][name]
                      + zoo["launches"][name] for name in per_step}
     model = train["trainer"].model
-    kernels.append(time_adam(model, main_launches["fused_adam"], per_step["fused_adam"],
-                             errs["fused_adam"], times["adam_in_step_ms"]))
+    kernels.append(time_adam(model, cli["model"], main_launches["fused_adam"],
+                             per_step["fused_adam"], errs["fused_adam"],
+                             times["adam_in_step_ms"]))
     kernels[-1]["launches_zoo"] = zoo["launches"]["fused_adam"]
-    kernels[-1]["ngcf_step"] = dict(zoo["ngcf_adam"],
-                                    launches_ngcf=zoo["runs"]["ngcf"]["launches"]["fused_adam"])
+    kernels[-1]["launches_ngcf"] = zoo["runs"]["ngcf"]["launches"]["fused_adam"]
     hybrid_k4_err = max(v for k, v in zoo["hybrid"]["errors"].items()
                         if k.startswith("ell_gather_reduce"))
     kernels.append(time_ell(model, main_launches["ell_gather_reduce"],
