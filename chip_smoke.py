@@ -100,7 +100,8 @@
    CLI's full width (dim 64, 2 blocks, max_len 50, batch 256): each
    model, and SASRec under ``--bf16``, on the card against the CPU for 3
    steps on a 1,500 × 2,000 stand-in's sequences (max_len 20, batch 512)
-   at three seeds, both sides handed the same batches and draws (losses,
+   at three seeds, both sides handed the same batches and draws, the CPU's
+   steps under `torch.use_deterministic_algorithms(True)` (losses,
    the first step's gradients before Adam, the parameters after it, and
    for fp32 the eval of the same parameters within 1e-6; controls: Adam's
    bias correction one step late must fail the parameter check, BERT4Rec
@@ -115,7 +116,25 @@
    request p50 at 1 and 64 sessions and K1's time at those shapes; the
    learning check (SASRec on ``--synthetic`` Markov data: recall@10 above
    twice its start and above 0.2); and the native host sampler's build.
-12. Mesh phase: the (data, model) mesh of ``gsrs_tpu_torch.parallel`` on
+12. Tools phase, the JAX package's user tools as ported in
+   `gsrs_tpu_torch.tools`, each through its ``main`` on the card, counted,
+   on what the CLI, zoo and seq phases left: ``eval_checkpoint`` of the
+   zoo's lgn_segment run and of the SASRec run, each reproducing the run's
+   last valid CSV row within METRIC_ATOL (K1, and K4 on the graph);
+   ``bench_serving`` on the CLI run's checkpoint (its rows, K1 on each; its
+   fp32 batch-256 top-20 equal to a Retriever of the CLI run's model);
+   ``bench_eval``'s five variants on the stand-in (the lgn_segment
+   parameters) and the amazon-book-scale stand-in (52,643 × 91,599): K2 in
+   the bit-plane row only, K1 in the others, exact and bit-plane metrics
+   within METRIC_ATOL; K1 and K2 at B 2048 × d 64 × m 91,599 against their
+   plain versions, timed beside their bound and `torch.matmul`;
+   ``visualize``'s pop gates of the CLI run on the card against the CPU
+   within 1e-5 (K4) and its curve series; ``compute_ppr``'s rows summing
+   to 1; ``bench_spmm_modes`` (ell, hybrid8192, tiled 64:2048 at batch 2048
+   and 8192, one timed epoch; K4 on each); ``bench_seq`` at 100k × 20k ×
+   64 (one timed epoch a model; K1 on each eval batch) and one profiled
+   step of each model.
+13. Mesh phase: the (data, model) mesh of ``gsrs_tpu_torch.parallel`` on
    the card, at full width, fp32, on the ELL layout: four gloo ranks on
    the one card form a 2 × 2 mesh (NCCL refuses two ranks on one
    device); in every rank `cli.main` trains LightGCN for 10 steps of 2048
@@ -144,12 +163,12 @@
    a bf16 tensor themselves. Then NCCL: the CLI across min(cards, 4) cards
    when there are two or more, else a one-rank NCCL group running the
    mesh step on this card; the line says which.
-13. Stress phase, ``python -m gsrs_tpu_torch.stress_pod`` through its
+14. Stress phase, ``python -m gsrs_tpu_torch.stress_pod`` through its
    `main`: BASELINE config 5's plan on H100s (``--plan_only --chip
    h100``), one counted run on the card at 1M users x 500k items, dim 256
    (K4, K1 launched, K3 once per step; its peak device memory beside the plan's total),
    K1 timed at its eval's shape, then ``--smoke`` on four gloo ranks.
-14. Times each kernel by its device time (the kernels' own time in
+15. Times each kernel by its device time (the kernels' own time in
    torch.profiler's device-side events over a window of launches, after a
    warm-up; CUDA events around the same calls are logged beside it where
    the two differ by more than 10%) beside its bound, its plain version
@@ -173,6 +192,7 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -1800,7 +1820,6 @@ def csv_rows(path: str):
 
 def run_quiet(fn, *args, **kw):
     """fn's result and its standard output, captured."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -2506,30 +2525,35 @@ def zoo_card_vs_cpu(dev) -> dict:
     return out
 
 
-def time_k1_at(dev, B: int, d: int, m: int, what: str) -> dict:
-    """K1 on random (B, d) users, (m, d) items and (B, ⌈m/32⌉) bitset words,
-    held against its plain version on them (`compare`), by device time
-    beside its bound, the plain version and `torch.matmul`."""
+def time_k1_at(dev, B: int, d: int, m: int, what: str, bitplane: bool = False,
+               block_m: int = 4096) -> dict:
+    """K1 (K2 with ``bitplane``: m padded to whole blocks of ``block_m``) on
+    random (B, d) users, (m, d) items and their bitset words, held against
+    its plain version on them (`compare`), by device time beside its
+    bound, the plain version and `torch.matmul`."""
     from gsrs_tpu_torch.ops.scoring import masked_scores, masked_scores_reference
 
-    W = -(-m // 32)
+    rows = -(-m // block_m) * block_m if bitplane else m
+    W = rows // 32 if bitplane else -(-m // 32)
+    name = "masked_scores_bitplane" if bitplane else "masked_scores"
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     u = torch.randn(B, d, device=dev, generator=g)
-    it = torch.randn(m, d, device=dev, generator=g)
+    it = torch.randn(rows, d, device=dev, generator=g)
     bits = torch.randint(-2**31, 2**31, (B, W), device=dev, generator=g,
                          dtype=torch.int64).to(torch.int32)
-    err = compare(masked_scores(u, it, bits), masked_scores_reference(u, it, bits),
-                  f"masked_scores {what}")
+    kw = dict(bitplane=bitplane, block_m=block_m)
+    err = compare(masked_scores(u, it, bits, **kw), masked_scores_reference(u, it, bits, **kw),
+                  f"{name} {what}")
     torch.cuda.empty_cache()
-    b_ms, b_by = bound(B, d, m, W)
-    t = {k: kernel_ms(fn, reps, f"masked_scores {what} {k}")["ms"] for k, fn, reps in (
-        ("ms", lambda: masked_scores(u, it, bits), 50),
-        ("plain_ms", lambda: masked_scores_reference(u, it, bits), 10),
+    b_ms, b_by = bound(B, d, rows, W)
+    t = {k: kernel_ms(fn, reps, f"{name} {what} {k}")["ms"] for k, fn, reps in (
+        ("ms", lambda: masked_scores(u, it, bits, **kw), 50),
+        ("plain_ms", lambda: masked_scores_reference(u, it, bits, **kw), 10),
         ("library_ms", lambda: torch.matmul(u, it.T), 50))}
-    log(f"[time] masked_scores {what}, B={B} d={d} m={m}: {t['ms'] * 1e3:.1f} us, bound "
+    log(f"[time] {name} {what}, B={B} d={d} m={rows}: {t['ms'] * 1e3:.1f} us, bound "
         f"{b_ms * 1e3:.1f} us ({b_by}), plain {t['plain_ms'] * 1e3:.1f} us, torch.matmul "
         f"{t['library_ms'] * 1e3:.1f} us; max abs error against the plain version {err:.3e}")
-    return dict(t, bound_ms=b_ms, bound_by=b_by, shape=[B, d, m], max_abs_err=err)
+    return dict(t, bound_ms=b_ms, bound_by=b_by, shape=[B, d, rows], max_abs_err=err)
 
 
 def time_k1_d256(dev) -> dict:
@@ -2571,11 +2595,12 @@ def seq_trainer(kind: str, bf16: bool, data, seed: int, device):
 def seq_steps(kind, bf16, data, batches, draws, seed, device, control=None):
     """3 `run_steps` of a seeded sequential model on ``device`` with draws
     made on the host → (losses, parameters, the first step's gradients as
-    Adam read them, the trainer), on the CPU. ``control``: "late_bias"
+    Adam read them, the trainer), on the CPU. On the CPU the steps run
+    under `deterministic_on_cpu`, so the reference repeats bit for bit.
+    ``control``: "late_bias"
     starts Adam's step count at 1 (its bias correction one step late),
     "erf_gelu" gives BERT4Rec torch's exact GELU ("fp32" is the caller's
     bf16=False)."""
-    import contextlib
     from unittest import mock
 
     from gsrs_tpu_torch.models import bert4rec
@@ -2599,10 +2624,30 @@ def seq_steps(kind, bf16, data, batches, draws, seed, device, control=None):
     patch = contextlib.nullcontext()
     if control == "erf_gelu":
         patch = mock.patch.object(bert4rec, "gelu_tanh", torch.nn.functional.gelu)
-    with patch:
+    with patch, deterministic_on_cpu(device):
         state, losses = tr.run_steps(state, batches, draws)
     return (losses.cpu(), {k: v.detach().cpu() for k, v in state.params.items()}, grads[0],
             tr)
+
+
+@contextlib.contextmanager
+def deterministic_on_cpu(device: torch.device):
+    """On the CPU, `torch.use_deterministic_algorithms(True)` for the
+    block, the previous setting restored after it: the backward of a
+    gather (``index_put_`` with accumulate) then adds in one order, not in
+    the threads' order, so two runs of a card-vs-CPU check's CPU reference
+    (at one thread count) give the same bits. The card's side is left as
+    it runs."""
+    if device.type != "cpu":
+        yield
+        return
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
 
 
 def seq_readings(card, cpu) -> dict:
@@ -2929,6 +2974,240 @@ def seq_phase(dev, out_dir: str) -> dict:
           + resume["launches"]["masked_scores"] + serving["launches"]["masked_scores"])
     return dict(card_vs_cpu=vs_cpu, runs=runs, resume=resume, serving=serving, learning=learn, native_build_s=native_s,
                 launches={"masked_scores": k1})
+
+
+# --------------------------------------------------------------- tools phase
+# The JAX package's user tools, ported (`gsrs_tpu_torch.tools`), each through its `main` on the
+# card, on what the CLI, zoo and seq phases left under the smoke's directory: the stand-in's
+# dataset directory, the CLI run's pop-gate checkpoint (bf16, i2i, approx top-k), the zoo's
+# lgn_segment run (fp32, exact top-k) and the seq phase's SASRec run (exact top-k, resumed)
+TOOLS_GRAPH_CKPT = "zoo_lgn_segment"
+TOOLS_SEQ_CKPT = "seq_sasrec"
+TOOLS_SEQ_EVAL = ["--testbatch", "256", "--topks", "[10,20]"]  # seq_cli's eval batch and top-k
+TOOLS_SPMM = ["--batch", "2048", "8192", "--hybrid_cols", "8192", "--tiled", "64:2048",
+              "--timed_epochs", "1"]
+AMAZON_SHAPE = dict(B=2048, d=64, m=91599)  # bench_eval's amazon-book-scale eval batch
+GATE_ATOL = 1e-5  # the pop gate on the card against the CPU
+
+
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every launch count zeroed just before and
+    read just after → (its result, its standard output, the launches,
+    seconds)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, text = run_quiet(fn, *args, **kw)
+    torch.cuda.synchronize()
+    return out, text, read_counts(), time.perf_counter() - t0
+
+
+def tools_eval_checkpoint(root: str) -> dict:
+    """`eval_checkpoint` on the zoo's lgn_segment run and the seq phase's
+    SASRec run (each evaluated with exact top-k): the last row of each
+    run's valid CSV within METRIC_ATOL; K1 launched, K4 on the graph path
+    only, no K2 or K3."""
+    from gsrs_tpu_torch.tools import eval_checkpoint
+
+    out = {}
+    for name, ckpt, extra in (("graph", TOOLS_GRAPH_CKPT, []),
+                              ("sasrec", TOOLS_SEQ_CKPT, TOOLS_SEQ_EVAL)):
+        ckpt = os.path.join(root, ckpt)
+        metrics, text, launches, wall = counted(
+            eval_checkpoint.main, ["--checkpoint_dir", ckpt, "--data_root", root, "--dataset",
+                                   CLI_DATASET] + extra)
+        last = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))[-1]
+        want = {k: float(v) for k, v in last.items() if "@" in k}
+        check(set(metrics) == set(want), f"eval_checkpoint {name}: {sorted(metrics)} vs the CSV's "
+              f"{sorted(want)}")
+        diff = max(abs(metrics[k] - want[k]) for k in want)
+        check(diff <= METRIC_ATOL, f"eval_checkpoint {name}: metrics {metrics} differ from the "
+              f"run's last eval {want} by {diff}")
+        check(launches["masked_scores"] > 0 and launches["masked_scores_bitplane"] == 0
+              and launches["fused_adam"] == 0, f"eval_checkpoint {name}: launches {launches}")
+        check((launches["ell_gather_reduce"] > 0) == (name == "graph"),
+              f"eval_checkpoint {name}: K4 launched {launches['ell_gather_reduce']} times")
+        out[name] = dict(max_diff=diff, launches=launches, run_s=wall,
+                         epoch=int(last["epoch"]), metrics=metrics)
+        log(f"[tools] eval_checkpoint {name} (epoch {last['epoch']}): {wall:.2f} s; the run's last "
+            f"eval reproduced within {diff:.1e}; launches {launches}")
+    out["launches"] = {k: out["graph"]["launches"][k] + out["sasrec"]["launches"][k]
+                       for k in out["graph"]["launches"]}
+    return out
+
+
+def tools_bench_serving(dev, root: str, cli_model) -> dict:
+    """`bench_serving` on the CLI run's checkpoint at the Gowalla shape
+    (its int8 artifact in a temporary directory): every row launched K1;
+    the fp32 batch-256 top-20 of its first request equals a Retriever of
+    the CLI run's final model on the same ids (ties aside)."""
+    import tempfile
+
+    from gsrs_tpu_torch.data.dataset import load_dataset
+    from gsrs_tpu_torch.ops.scoring import masked_scores_reference
+    from gsrs_tpu_torch.serve import retriever_from_model
+    from gsrs_tpu_torch.tools import bench_serving
+
+    data_dir = os.path.join(root, CLI_DATASET)
+    with tempfile.TemporaryDirectory() as artifacts:
+        (rows, answers), text, launches, wall = counted(
+            bench_serving.main, ["--checkpoint_dir", os.path.join(root, "cli_ckpt"),
+                                 "--dataset_dir", data_dir, "--artifact_dir", artifacts])
+    check("restored @ epoch" in text, "bench_serving did not restore the CLI run's checkpoint")
+    for r in rows:
+        check(r["launches"]["masked_scores"] > 0 and r["launches"]["masked_scores_bitplane"] == 0,
+              f"bench_serving row {r}: launches")
+        log(f"[tools] bench_serving {json.dumps(r)}")
+    ids, items = answers[("fp32", 256)]
+    live = retriever_from_model(cli_model, load_dataset(data_dir), batch_size=BATCH)
+    live_items, _ = live.recommend(ids, k=K)
+    ue, ie, seen = live._serve_tables
+    idx = torch.as_tensor(ids, device=dev)
+    with torch.no_grad():
+        same_topk(items, masked_scores_reference(ue[idx], ie, seen[idx]), live_items,
+                  "bench_serving fp32 B=256 vs the CLI model's Retriever")
+    log(f"[tools] bench_serving: {wall:.2f} s; its fp32 batch-256 top-{K} equal to the CLI "
+        "model's Retriever on the same ids")
+    return dict(rows=rows, launches=launches, run_s=wall)
+
+
+def tools_bench_eval(dev, root: str) -> dict:
+    """`bench_eval` on the stand-in's directory (the zoo's lgn_segment
+    parameters) and the amazon-book-scale stand-in, all five variants: K2
+    in the bit-plane row only, K1 in the others; exact and bit-plane
+    metrics within METRIC_ATOL; then K1 and K2 at the amazon-book eval
+    shape against their plain versions, timed."""
+    from gsrs_tpu_torch.tools import bench_eval
+
+    rows, text, launches, wall = counted(
+        bench_eval.main, ["--dataset_dir", os.path.join(root, CLI_DATASET), "--checkpoint_dir",
+                          os.path.join(root, TOOLS_GRAPH_CKPT)])
+    check(len(rows) == 10, f"bench_eval printed {len(rows)} rows")
+    for r in rows:
+        k1, k2 = r["launches"]["masked_scores"], r["launches"]["masked_scores_bitplane"]
+        bitplane = r["variant"] == "pallas-bitplane+exact"
+        check((k2 > 0 and k1 == 0) if bitplane else (k1 > 0 and k2 == 0),
+              f"bench_eval {r['dataset']} {r['variant']}: K1 {k1}, K2 {k2}")
+        log(f"[tools] bench_eval {json.dumps(r)}")
+    for name in ("gowalla", "amazon-book-scale"):
+        by = {r["variant"]: r for r in rows if r["dataset"] == name}
+        diff = max(abs(by["exact"][k] - by["pallas-bitplane+exact"][k])
+                   for k in ("recall@20", "ndcg@20"))
+        check(diff <= METRIC_ATOL, f"bench_eval {name}: exact and bit-plane differ by {diff}")
+    shape = AMAZON_SHAPE
+    k1 = time_k1_at(dev, shape["B"], shape["d"], shape["m"], "amazon-book-scale eval")
+    k2 = time_k1_at(dev, shape["B"], shape["d"], shape["m"], "amazon-book-scale eval",
+                    bitplane=True)
+    log(f"[tools] bench_eval: {wall:.2f} s for both datasets")
+    return dict(rows=rows, launches=launches, run_s=wall, k1=k1, k2=k2)
+
+
+def tools_visualize(root: str) -> dict:
+    """`visualize.gate_values` of the CLI run's pop-gate checkpoint on the
+    card (K4 launched) against the CPU within GATE_ATOL, and
+    `curve_series` of that run: one value a CSV row. Nothing is drawn."""
+    from gsrs_tpu_torch.tools import visualize
+
+    ckpt, data_dir = os.path.join(root, "cli_ckpt"), os.path.join(root, CLI_DATASET)
+    (gate, pop), _, launches, wall = counted(visualize.gate_values, ckpt, data_dir)
+    check(launches["ell_gather_reduce"] > 0, f"gate_values launched {launches}")
+    t0 = time.perf_counter()
+    gate_cpu, _ = run_quiet(visualize.gate_values, ckpt, data_dir, "cpu")[0]
+    cpu_s = time.perf_counter() - t0
+    diff = float(np.abs(gate - gate_cpu).max())
+    check(gate.shape == pop.shape and bool(np.isfinite(gate).all()), "gate values")
+    check(diff <= GATE_ATOL, f"the pop gate on the card differs from the CPU's by {diff}")
+    series = visualize.curve_series(ckpt)
+    for part, name in (("train", "train_epoch_metrics.csv"), ("valid", "valid_epoch_metrics.csv")):
+        n = len(csv_rows(os.path.join(ckpt, name)))
+        check(all(len(v) == n for v in series[part].values()) and series[part],
+              f"curve_series {part}: {series[part]} for {n} CSV rows")
+    log(f"[tools] visualize gates: {gate.size} items, gate {gate.min():.4f}–{gate.max():.4f} "
+        f"(mean {gate.mean():.4f}), card vs CPU max diff {diff:.2e} (limit {GATE_ATOL}); "
+        f"{wall:.2f} s on the card, {cpu_s:.2f} s on the CPU; K4 {launches['ell_gather_reduce']}; "
+        f"curves: {len(series['train']['epoch'])} train and {len(series['valid']['epoch'])} valid "
+        "rows")
+    return dict(gate_diff=diff, gate_range=[float(gate.min()), float(gate.max())],
+                launches=launches, card_s=wall, cpu_s=cpu_s)
+
+
+def tools_compute_ppr(root: str) -> dict:
+    """`compute_ppr` on the stand-in's directory (host, float64): each
+    row of its weights sums to 1."""
+    from gsrs_tpu_torch.tools import compute_ppr
+
+    t0 = time.perf_counter()
+    W, _ = run_quiet(compute_ppr.main, ["--dataset_dir", os.path.join(root, CLI_DATASET),
+                                        "--out", os.path.join(root, "ppr_weights.npy")])
+    wall = time.perf_counter() - t0
+    n = GOWALLA_SHAPE["n_users"] + GOWALLA_SHAPE["m_items"]
+    err = float(np.abs(W.sum(axis=1) - 1.0).max())
+    check(W.shape == (n, 4) and err <= 1e-12, f"PPR weights {W.shape}, row sums off by {err}")
+    log(f"[tools] compute_ppr: {wall:.2f} s for {W.shape} weights; rows sum to 1 within {err:.1e}")
+    return dict(run_s=wall, row_sum_err=err)
+
+
+def tools_bench_spmm_modes(root: str) -> dict:
+    """`bench_spmm_modes` at batch 2048 and 8192 over ell, hybrid8192 and
+    tiled 64:2048 (one timed epoch each): K4 launched on every row."""
+    from gsrs_tpu_torch.tools import bench_spmm_modes
+
+    rows, _, launches, wall = counted(bench_spmm_modes.main,
+                                      ["--dataset_dir", os.path.join(root, CLI_DATASET)]
+                                      + TOOLS_SPMM)
+    check(len(rows) == 6, f"bench_spmm_modes printed {len(rows)} rows")
+    for r in rows:
+        check(r["launches"]["ell_gather_reduce"] > 0 and np.isfinite(r["last_loss"]),
+              f"bench_spmm_modes row {r}")
+        log(f"[tools] bench_spmm_modes {r['spmm']} batch {r['batch']}: {r['epoch_s']} s/epoch, "
+            f"loss {r['last_loss']}, K4 {r['launches']['ell_gather_reduce']} launches")
+    log(f"[tools] bench_spmm_modes: {wall:.2f} s with the layouts' builds")
+    return dict(rows=rows, launches=launches, run_s=wall)
+
+
+def tools_bench_seq() -> dict:
+    """`bench_seq` at its defaults with one timed epoch: K1 on each eval
+    batch (two evals a model), no other kernel; then one profiled step of
+    each model's trainer (`seq_profile_steps`)."""
+    from gsrs_tpu_torch.tools import bench_seq
+
+    out, _, launches, wall = counted(bench_seq.main, ["--epochs", "1"])
+    rows, profiles = [], {}
+    for kind, (row, tr, state) in out.items():
+        n_batches = tr._eval_seqs.shape[0]
+        check(row["launches"]["masked_scores"] == 2 * n_batches
+              and row["launches"]["ell_gather_reduce"] == row["launches"]["fused_adam"] == 0,
+              f"bench_seq {kind}: launches {row['launches']} for 2 evals of {n_batches} batches")
+        log(f"[tools] bench_seq {kind}: {row['epoch_s']} s/epoch ({tr.steps_per_epoch} steps of "
+            f"{tr.batch_size}), {row['seqs_per_s']} seqs/s, eval {row['eval_s']} s "
+            f"({n_batches} batches), recall@10 {row['recall@10']}")
+        profiles[kind] = seq_profile_steps(tr, state, f"bench_seq {kind}", steps=1)
+        rows.append(row)
+    del out
+    log(f"[tools] bench_seq: {wall:.2f} s with the data's build")
+    return dict(rows=rows, profiles=profiles, launches=launches, run_s=wall)
+
+
+def tools_phase(dev, out_dir: str, cli_model) -> dict:
+    """The ported tools, in the order of ROADMAP A8, on the card."""
+    out, seconds = {}, {}
+    for name, fn, args in (("eval_checkpoint", tools_eval_checkpoint, (out_dir,)),
+                           ("bench_serving", tools_bench_serving, (dev, out_dir, cli_model)),
+                           ("bench_eval", tools_bench_eval, (dev, out_dir)),
+                           ("visualize", tools_visualize, (out_dir,)),
+                           ("compute_ppr", tools_compute_ppr, (out_dir,)),
+                           ("bench_spmm_modes", tools_bench_spmm_modes, (out_dir,)),
+                           ("bench_seq", tools_bench_seq, ())):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    out["launches"] = {k: sum(v["launches"].get(k, 0) for v in out.values() if "launches" in v)
+                       for k in ("masked_scores", "masked_scores_bitplane", "ell_gather_reduce",
+                                 "fused_adam")}
+    log(f"[tools] seconds: {seconds}; launches {out['launches']}")
+    return out
 
 
 # ---------------------------------------------------------------- mesh phase
@@ -3853,6 +4132,7 @@ def main() -> int:
     cli = phase("cli", cli_phase, dev, data, out_dir)
     zoo = phase("zoo", zoo_phase, dev, data, train["ell"], out_dir)
     seq = phase("seq", seq_phase, dev, out_dir)
+    tools = phase("tools", tools_phase, dev, out_dir, cli["model"])
     mesh = phase("mesh", mesh_phase, dev, out_dir)
     stress = phase("stress", stress_phase, dev)
     times = phase("time_training", time_training, dev, train)
@@ -3923,6 +4203,13 @@ def main() -> int:
                 run: {side: dict(whole=b["whole_ms"][side], ranks=[t[side] for t in b["rank_ms"]])
                       for side in b["whole_ms"] if side.endswith("K4")}
                 for run, b in mesh["blocks"].items() if "whole_ms" in b}
+        # the ported tools on the card
+        k["launches_tools"] = tools["launches"].get(k["name"], 0)
+        k["launches"] += k["launches_tools"]
+        if k["name"] == "masked_scores":
+            k["at_amazon_scale"] = tools["bench_eval"]["k1"]
+        if k["name"] == "masked_scores_bitplane":
+            k["at_amazon_scale"] = tools["bench_eval"]["k2"]
         # the stress harness: its run on the card and the rank 0 of its --smoke
         k["launches_stress"] = stress["launches"].get(k["name"], 0)
         k["launches"] += k["launches_stress"]
@@ -3947,6 +4234,7 @@ def main() -> int:
         "cli": {k: v for k, v in cli.items() if k != "model"},
         "zoo": zoo,
         "seq": seq,
+        "tools": tools,
         "mesh": mesh,
         "stress": stress,
         "phase_s": phase_s, "smoke_s": time.perf_counter() - t_start,

@@ -63,9 +63,15 @@ def stand_in_data() -> InteractionData:
 def load_bench_data(data_root: Optional[str] = None):
     """→ (data, label, dataset_dir or None): Gowalla when
     ``<data_root>/gowalla/train.txt`` exists, else the stand-in."""
-    ddir = os.path.join(data_root or os.path.join(_repo_root(), "data"), "gowalla")
-    if os.path.exists(os.path.join(ddir, "train.txt")):
-        return load_dataset(ddir, name="gowalla"), "gowalla", ddir
+    return gowalla_or_stand_in(os.path.join(data_root or os.path.join(_repo_root(), "data"),
+                                            "gowalla"))
+
+
+def gowalla_or_stand_in(dataset_dir: str):
+    """→ (data, label, dataset_dir or None): the dataset in ``dataset_dir``
+    (named gowalla) when its train.txt exists, else the stand-in."""
+    if os.path.exists(os.path.join(dataset_dir, "train.txt")):
+        return load_dataset(dataset_dir, name="gowalla"), "gowalla", dataset_dir
     return stand_in_data(), STAND_IN, None
 
 

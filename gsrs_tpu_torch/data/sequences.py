@@ -94,18 +94,24 @@ def synthetic_markov_sequences(
     predictable from the last item's cluster."""
     rng = np.random.default_rng(seed)
     cluster_of = (np.arange(m_items) * n_clusters) // m_items
-    members = [np.flatnonzero(cluster_of == c) for c in range(n_clusters)]
+    # a cluster is the contiguous id range [first, first + size): drawing
+    # first + integers(0, size) takes from the stream what choice() over
+    # its members takes, and gives the same item, at a fraction of the
+    # host time
+    first = np.searchsorted(cluster_of, np.arange(n_clusters)).tolist()
+    size = np.bincount(cluster_of, minlength=n_clusters).tolist()
+    integers, uniform = rng.integers, rng.random
 
     train_seqs = np.zeros((n_users, max_len), dtype=np.int32)
     targets = np.zeros(n_users, dtype=np.int32)
     hist_sets: Dict[int, np.ndarray] = {}
     for u in range(n_users):
-        c = int(rng.integers(n_clusters))
+        c = int(integers(n_clusters))
         walk = []
         for _ in range(max_len + 1):
-            if rng.random() >= p_stay:
-                c = int(rng.integers(n_clusters))
-            walk.append(int(rng.choice(members[c])) + 1)
+            if uniform() >= p_stay:
+                c = int(integers(n_clusters))
+            walk.append(first[c] + int(integers(0, size[c])) + 1)
         hist = np.asarray(walk[:-1], dtype=np.int32)
         train_seqs[u] = hist
         targets[u] = walk[-1]

@@ -20,3 +20,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -79,3 +79,19 @@ def load_library(name: str) -> ctypes.CDLL:
             build_kernels([name])
             lib = _LIBS[name] = ctypes.CDLL(library_path(name))
         return lib
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel name (each wrapper
+    adds one where it launches its kernel, and nowhere else)."""
+    from gsrs_tpu_torch.ops import ell_kernel, scoring
+    from gsrs_tpu_torch.train import fused_adam
+
+    return {k: n for c in (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES)
+            for k, n in c.items()}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches each kernel made since `launch_counts` returned
+    ``before``."""
+    return {k: n - before[k] for k, n in launch_counts().items()}

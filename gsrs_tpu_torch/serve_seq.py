@@ -102,18 +102,24 @@ class SeqRetriever:
         results are the same)."""
         seqs, seen = self._encode_sessions(sessions)
         n, B = seqs.shape[0], self.batch_size
-        items = self.model.catalog()
         out_items = np.empty((n, k), np.int32)
         out_scores = np.empty((n, k), np.float32)
-        with fp32_reduction():
-            for s in range(0, n, B):
-                cs = torch.from_numpy(seqs[s:s + B]).long().to(self.device)
-                rows = bitset_to_tensor(seen[s:s + B], self.device)
-                q = self.model.user_representations(cs).contiguous()
-                top_s, top_i = topk_scores(masked_scores(q, items, rows), k)
-                out_items[s:s + B] = top_i.cpu().numpy()
-                out_scores[s:s + B] = top_s.cpu().numpy()
+        for s in range(0, n, B):
+            cs = torch.from_numpy(seqs[s:s + B]).long().to(self.device)
+            top_s, top_i = self._score_topk(cs, bitset_to_tensor(seen[s:s + B], self.device), k)
+            out_items[s:s + B] = top_i.cpu().numpy()
+            out_scores[s:s + B] = top_s.cpu().numpy()
         return out_items, out_scores
+
+    @torch.no_grad()
+    def _score_topk(self, seqs: torch.Tensor, seen_rows: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One chunk on the device: the encoder over ``seqs`` (b, max_len),
+        K1 over the real item rows with ``seen_rows`` (b, W) masked, and
+        the top-k → (scores, 0-based item ids), each (b, k)."""
+        with fp32_reduction():
+            q = self.model.user_representations(seqs).contiguous()
+            return topk_scores(masked_scores(q, self.model.catalog(), seen_rows), k)
 
 
 def export_seq_model(

@@ -195,21 +195,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _launches() -> dict:
-    from gsrs_tpu_torch.ops import ell_kernel, scoring
-    from gsrs_tpu_torch.train import fused_adam
-
-    return {k: n for c in (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES)
-            for k, n in c.items()}
-
-
-def _sync(device) -> None:
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(device, args, plan: dict) -> dict:
     """The run mode on this rank (or the one card): build, place, time
     the train step and the sharded eval → the numbers it printed."""
@@ -220,6 +205,8 @@ def run(device, args, plan: dict) -> dict:
     from gsrs_tpu_torch.data.adjacency import build_graph
     from gsrs_tpu_torch.data.dataset import pad_nodes_to_multiple
     from gsrs_tpu_torch.data.synthetic import powerlaw
+    from gsrs_tpu_torch.device import synchronize
+    from gsrs_tpu_torch.kernels import launch_counts, launches_since
     from gsrs_tpu_torch.models.registry import build_model
     from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
     from gsrs_tpu_torch.ops.ell import ell_from_interactions
@@ -233,12 +220,12 @@ def run(device, args, plan: dict) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device) if cuda else 0
-    launches0 = _launches()
+    launches0 = launch_counts()
     build, t0 = {}, time.perf_counter()
 
     def stage(name: str) -> None:
         nonlocal t0
-        _sync(device)
+        synchronize(device)
         build[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
@@ -311,12 +298,12 @@ def run(device, args, plan: dict) -> dict:
                                          real_m_items=data.real_m_items), device)
     eval_users = torch.from_numpy(eval_user_ids).to(device)
     vals, idx = scores_fn(all_u, all_i, eval_users, rows, args.topk)
-    _sync(device)
+    synchronize(device)
     reps = max(1, args.steps // 4)
     t0 = time.perf_counter()
     for _ in range(reps):
         vals, idx = scores_fn(all_u, all_i, eval_users, rows, args.topk)
-    _sync(device)
+    synchronize(device)
     eval_s = (time.perf_counter() - t0) / reps
     real_m = data.real_m_items or data.m_items
     if not (bool(torch.isfinite(vals).all()) and int(idx.max()) < real_m):
@@ -325,7 +312,7 @@ def run(device, args, plan: dict) -> dict:
                   "eval_users_per_s": round(args.eval_batch / eval_s)}
     print(json.dumps(evaluation))
 
-    launches = {k: n - launches0[k] for k, n in _launches().items()}
+    launches = launches_since(launches0)
     peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30 if cuda else None
     memory = {"peak_device_GiB": peak, "plan_total_GiB": plan["per_device_GiB"]["total"],
               "device": torch.cuda.get_device_name(device) if cuda else str(device)}

@@ -321,6 +321,22 @@ class Trainer:
             print(f"[resume] restored checkpoint from {path}")
         return state
 
+    def resume_weights(self, state: TrainState) -> TrainState:
+        """The parameters, epoch and best metric of the checkpoint that
+        `maybe_resume` would restore, without its optimizer state (what an
+        eval or a serving artifact needs, whatever optimizer trained it:
+        `maybe_resume` refuses a state of another ``fused_adam`` setting);
+        ``state`` unchanged when no checkpoint exists."""
+        path = self._resolve(self.cfg.train.resume_path, self._legacy_name())
+        if path is None:
+            return state
+        saved = self.ckpt.restore(path)
+        state = self._restore(state, saved, weights_only=True)
+        if self.primary:
+            print(f"[resume] restored the weights of {path}")
+        return dataclasses.replace(state, epoch=int(saved["epoch"]),
+                                   best_metric=float(saved["best_metric"]))
+
     # ------------------------------------------------------------------ fit
     def fit(
         self,
