@@ -25,7 +25,11 @@
    and of the Gowalla-shaped tables; NGCF's 14 leaves at full width in fp32
    and in bf16; one launch mixing fp32 and bf16 leaves with a leaf whose
    gradient is None; views at storage offset 1 (the scalar path); 70
-   leaves (two launches a step, counted).
+   leaves (two launches a step, counted). Then the exact top-k in
+   ``lax.top_k``'s tie order at B 2048 x m 91,599, k 20: bitwise equal to
+   `stable_topk` on scores rounded to 0.1 with an all-zero row, and to the
+   CPU's result with −0.0 kept; its time beside a bare `torch.topk`'s on
+   tie-free scores.
 4. Serving phase, LightGCN at Gowalla's shape (a seeded power-law
    stand-in: 29,858 users × 40,981 items, average degree 27), 3 layers at
    dim 64, fp32, seeded weights: build the graph, propagate, build the
@@ -133,7 +137,18 @@
    to 1; ``bench_spmm_modes`` (ell, hybrid8192, tiled 64:2048 at batch 2048
    and 8192, one timed epoch; K4 on each); ``bench_seq`` at 100k × 20k ×
    64 (one timed epoch a model; K1 on each eval batch) and one profiled
-   step of each model.
+   step of each model; ``bench_scaling`` at its default shapes (100k ×
+   50k, batch 8192, bf16) on 1, 2 and 4 gloo ranks sharing the card for 3
+   steps (meshes 1x1, 2x1, 2x2; warm-up losses within the bf16 mesh
+   limit of size 1's; K4 on rank 0; a shared card: no speed-up is read);
+   ``sweep_xsimgcl`` on the stand-in's directory (2 configurations x 2
+   epochs at batch 8192, an eval each; K4 and K1); ``profile_epoch
+   --eval`` (its phases, and a trace whose device events name K4's and
+   K1's kernels); ``bench_scale_standin``'s four subprocesses (yelp2018
+   and amazon-book shapes, ELL and hybrid, batch 8192: no FAILED row,
+   device memory in use beside the parameters' and layout's bytes, K4 and
+   K1); ``bench_seq_markov`` at its shapes for 30 epochs (SASRec and
+   GRU4Rec at 5x the popularity ranker's recall@10 or more).
 13. Mesh phase: the (data, model) mesh of ``gsrs_tpu_torch.parallel`` on
    the card, at full width, fp32, on the ELL layout: four gloo ranks on
    the one card form a 2 × 2 mesh (NCCL refuses two ranks on one
@@ -613,6 +628,69 @@ def kernel_phase(dev: torch.device) -> dict:
         if (B, d, m, bitplane) == (2048, ZOO_D, m_main, False):
             errs["masked_scores_d256"] = err
     return errs
+
+
+TIE_SHAPE = dict(B=2048, m=91599, k=20)  # the amazon-book-scale eval batch
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits (−0.0 differs from +0.0)."""
+    if a.is_floating_point():
+        a, b = a.float().view(torch.int32), b.float().view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def exact_tie_check(dev: torch.device) -> dict:
+    """``topk_scores(·, k, "exact")`` in ``lax.top_k``'s order on the card,
+    at the amazon-book-scale eval batch: on scores rounded to 0.1 (the k-th
+    and (k + 1)-th values tie in nearly every row) with an all-zero row,
+    ids and values bitwise equal to `stable_topk`'s, on +0.0 only
+    (`stable_topk` holds −0.0 equal to +0.0, where ``lax.top_k`` ranks it
+    below); with −0.0 kept (and a row of it), 256 rows of the card's
+    result bitwise equal to the CPU's, whose order tests/test_torch_topk_ties.py
+    holds to ``lax.top_k``. Then ``exact`` beside a bare `torch.topk` on
+    tie-free scores, timed in turns (topk, exact, exact, topk)."""
+    from gsrs_tpu_torch.ops.topk import stable_topk, topk_scores
+
+    B, m, k = TIE_SHAPE["B"], TIE_SHAPE["m"], TIE_SHAPE["k"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    raw = torch.randn(B, m, device=dev, generator=g)
+    signed = torch.round(raw * 10) / 10
+    signed[1] = 0.0
+    signed[2] = -0.0
+    ties = signed + 0.0  # −0.0 + 0.0 is +0.0
+
+    def tied_rows(x):
+        top = torch.topk(x, k + 1, dim=1).values
+        return int((top[:, k - 1] == top[:, k]).sum())
+
+    with torch.no_grad():
+        got = topk_scores(ties, k, "exact")
+        want = stable_topk(ties, k)
+        check(bitwise_equal(got[1], want[1]) and bitwise_equal(got[0], want[0]),
+              f"exact top-{k} on rounded scores differs from stable_topk in "
+              f"{int((got[1] != want[1]).any(dim=1).sum())} rows")
+        check(bool((got[1][1] == torch.arange(k, device=dev)).all()),
+              f"the all-zero row's top-{k} is {got[1][1].tolist()}")
+        card = topk_scores(signed, k, "exact")
+        cpu = topk_scores(signed[:256].cpu(), k, "exact")
+        check(bitwise_equal(card[1][:256].cpu(), cpu[1]) and bitwise_equal(card[0][:256].cpu(),
+                                                                            cpu[0]),
+              "exact top-k with −0.0 differs between the card and the CPU")
+        times = {"topk_ms": [], "exact_ms": []}
+        for name in ("topk_ms", "exact_ms", "exact_ms", "topk_ms"):
+            fn = ((lambda: torch.topk(raw, k, dim=1)) if name == "topk_ms"
+                  else (lambda: topk_scores(raw, k, "exact")))
+            times[name].append(cuda_ms(fn, reps=50))
+    out = {"tied_rows_rounded": tied_rows(ties), "tied_rows_tie_free": tied_rows(raw),
+           **{n: float(np.mean(v)) for n, v in times.items()}, "runs": times}
+    out["exact_over_topk"] = out["exact_ms"] / out["topk_ms"]
+    log(f"[topk] exact top-{k} at B {B} x m {m}: bitwise stable_topk's on 0.1-rounded scores "
+        f"({out['tied_rows_rounded']} of {B} rows tied at the k-th value), the CPU's with −0.0 "
+        f"kept; on tie-free scores ({out['tied_rows_tie_free']} rows tied) {out['exact_ms']:.4f} "
+        f"ms against torch.topk's {out['topk_ms']:.4f} ms ({out['exact_over_topk']:.3f}x; "
+        f"runs {times})")
+    return out
 
 
 # ------------------------------------------------------------ serving phase
@@ -2988,6 +3066,21 @@ TOOLS_SPMM = ["--batch", "2048", "8192", "--hybrid_cols", "8192", "--tiled", "64
               "--timed_epochs", "1"]
 AMAZON_SHAPE = dict(B=2048, d=64, m=91599)  # bench_eval's amazon-book-scale eval batch
 GATE_ATOL = 1e-5  # the pop gate on the card against the CPU
+# bench_scaling: its default shapes (100k x 50k, batch 8192, bf16) on 1, 2 and 4 gloo ranks
+# sharing the card; the steps cut from its 30, and bench_seq_markov's epochs from its 60, for
+# the smoke's time (with 5 steps and 60 epochs a whole smoke took 990 s on an NVIDIA H100 80GB
+# HBM3 at 700 W, against the 1200 s a run is allowed)
+SCALING_ARGS = ["--devices", "1", "2", "4", "--dist_backend", "gloo", "--steps", "3"]
+SWEEP_ARGS = ["--epochs", "2", "--eval_every", "1", "--lambdas", "0.1", "0.2", "--batch", "8192"]
+PROFILE_ARGS = ["--epochs", "1", "--bpr_batch", "8192", "--eval"]
+STANDIN_ARGS = ["--batch", "8192", "--timed_epochs", "1"]  # both shapes, both layouts
+# K4's and K1's CUDA functions (csrc/ell_gather_reduce.cu, csrc/masked_scores.cu) by the
+# names a profiler trace gives their kernels
+TRACE_KERNELS = {"ell_gather_reduce": "ell_gather_kernel", "masked_scores": "masked_scores_kernel"}
+MARKOV_ARGS = ["--epochs", "30"]
+# SASRec and GRU4Rec must reach this multiple of the popularity ranker's recall@10 (the JAX
+# tool read about 20x on the CPU at 60 epochs)
+MARKOV_MIN_VS_POPULARITY = 5.0
 
 
 def counted(fn, *args, **kw):
@@ -3188,6 +3281,151 @@ def tools_bench_seq() -> dict:
     return dict(rows=rows, profiles=profiles, launches=launches, run_s=wall)
 
 
+def tools_bench_scaling() -> dict:
+    """`bench_scaling` on 1, 2 and 4 gloo ranks sharing the card (a 1x1,
+    2x1 and 2x2 mesh): finite losses, each size's warm-up loss (the same
+    parameters and batch) within the bf16 mesh limit of size 1's, K4 on
+    rank 0 of each. The ranks share one card and stage their collectives
+    through host memory: the rows show that the mesh runs, not a speed-up."""
+    from gsrs_tpu_torch.tools import bench_scaling
+
+    rows, _, _, wall = counted(bench_scaling.main, SCALING_ARGS)
+    check([r["mesh"] for r in rows] == ["1x1", "2x1", "2x2"],
+          f"bench_scaling meshes {[r['mesh'] for r in rows]}")
+    base = rows[0]["warmup_loss"]
+    rtol = MESH_BLOCK_LIMITS["bf16"]["loss_rtol"]
+    for r in rows:
+        err = abs(r["warmup_loss"] - base) / abs(base)
+        check(bool(np.isfinite(r["warmup_loss"])) and err <= rtol,
+              f"bench_scaling {r['mesh']}: warm-up loss {r['warmup_loss']} vs {base} at size 1 "
+              f"({err:.2e} > {rtol})")
+        check(r["launches"]["ell_gather_reduce"] > 0, f"bench_scaling {r['mesh']}: {r['launches']}")
+        log(f"[tools] bench_scaling {r['mesh']} ({r['backend'] or 'one process'}, "
+            f"{r['ranks_per_card']} rank(s) on the card): {r['step_ms']} ms a step, "
+            f"{r['examples_per_s']} examples/s, efficiency {r['scaling_efficiency']} (shared "
+            f"card, host-staged gloo: not a speed-up); warm-up loss {r['warmup_loss']:.7f} "
+            f"({err:.1e} of size 1's); K4 {r['launches']['ell_gather_reduce']} on rank 0")
+    launches = {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+    log(f"[tools] bench_scaling: {wall:.2f} s with the ranks' start-up and data builds")
+    return dict(rows=rows, launches=launches, run_s=wall)
+
+
+def tools_sweep_xsimgcl(root: str) -> dict:
+    """`sweep_xsimgcl` on the stand-in's directory, 2 configurations x 2
+    epochs, an eval after each: finite losses, K4 and K1 launched."""
+    import tempfile
+
+    from gsrs_tpu_torch.tools import sweep_xsimgcl
+
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        traj, text, launches, wall = counted(
+            sweep_xsimgcl.main, ["--data_root", root, "--dataset", CLI_DATASET,
+                                 "--checkpoint_root", ckpt_root] + SWEEP_ARGS)
+    evals = [ln for ln in text.splitlines() if ln.startswith("  e")]
+    check(sorted(traj) == [(0.1, 0.2), (0.2, 0.2)] and len(evals) == 4
+          and all([r["epoch"] for r in rows] == [1, 2] for rows in traj.values()),
+          f"sweep_xsimgcl printed {evals}")
+    check(all(np.isfinite(r["loss"]) for rows in traj.values() for r in rows),
+          "sweep_xsimgcl losses")
+    check(launches["ell_gather_reduce"] > 0 and launches["masked_scores"] > 0,
+          f"sweep_xsimgcl launches {launches}")
+    configs = {f"l{lam}_e{eps}": dict(s_per_epoch_with_eval=rows[-1]["elapsed_s"] / 2,
+                                      loss=[r["loss"] for r in rows],
+                                      recall20=[r["recall@20"] for r in rows])
+               for (lam, eps), rows in traj.items()}
+    for ln in evals:
+        log(f"[tools] sweep_xsimgcl{ln}")
+    log(f"[tools] sweep_xsimgcl: {wall:.2f} s; s/epoch with its eval "
+        + ", ".join(f"{k} {v['s_per_epoch_with_eval']:.3f}" for k, v in configs.items())
+        + f"; launches {launches}")
+    return dict(configs=configs, launches=launches, run_s=wall)
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel: device events whose name holds its CUDA function} in a
+    Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(fn in n for n in names) for k, fn in TRACE_KERNELS.items()}
+
+
+def tools_profile_epoch(root: str) -> dict:
+    """`profile_epoch --eval` on the stand-in's directory: every phase in
+    the summary, one trace file whose device events name K4's and K1's
+    kernels."""
+    import tempfile
+
+    from gsrs_tpu_torch.tools import profile_epoch
+
+    with tempfile.TemporaryDirectory() as trace:
+        summary, _, launches, wall = counted(
+            profile_epoch.main, ["--data_root", root, "--dataset", CLI_DATASET,
+                                 "--trace_dir", trace] + PROFILE_ARGS)
+        files = [os.path.join(trace, f) for f in os.listdir(trace) if f.endswith(".json")]
+        check(len(files) == 1, f"profile_epoch wrote {os.listdir(trace)}")
+        size = os.path.getsize(files[0])
+        seen = trace_kernels(files[0])
+    phases = {part.split(": ")[0]: part.split(": ")[1] for part in summary.split(" | ")}
+    want = {"load_data", "init", "warmup_epoch_incl_compile", "warmup_eval_incl_compile",
+            "epoch", "eval"}
+    check(set(phases) == want, f"profile_epoch phases {sorted(phases)}")
+    check(all(seen.values()), f"profile_epoch's trace: kernel events {seen}")
+    check(launches["ell_gather_reduce"] > 0 and launches["masked_scores"] > 0,
+          f"profile_epoch launches {launches}")
+    log(f"[tools] profile_epoch: {summary}; trace {size / 2**20:.1f} MiB with {seen} device "
+        f"events of K4 and K1; {wall:.2f} s")
+    return dict(phases=phases, trace_mib=size / 2**20, trace_kernel_events=seen,
+                launches=launches, run_s=wall)
+
+
+def tools_bench_scale_standin() -> dict:
+    """`bench_scale_standin`'s sweep (one subprocess a config) at batch
+    8192 on both shapes and both layouts: four rows, none FAILED, each
+    with device memory in use, K4 and K1 launched."""
+    from gsrs_tpu_torch.tools import bench_scale_standin
+
+    rows, _, _, wall = counted(bench_scale_standin.drive, STANDIN_ARGS)
+    check([(r["shape"], r["spmm"]) for r in rows]
+          == [(s, m) for s in bench_scale_standin.SHAPES for m in ("ell", "hybrid")]
+          and not any("result" in r for r in rows), f"bench_scale_standin rows {rows}")
+    for r in rows:
+        check(r["hbm_gib_in_use"] > 0 and r["launches"]["ell_gather_reduce"] > 0
+              and r["launches"]["masked_scores"] > 0, f"bench_scale_standin row {r}")
+        log(f"[tools] bench_scale_standin {r['shape']} {r['spmm']} batch {r['batch']}: "
+            f"{r['train_epoch_s']} s/epoch, eval {r['eval_s']} s ({r['eval_users_per_s']} "
+            f"users/s), {r['hbm_gib_in_use']} GiB in use beside "
+            f"{r['params_bytes'] / 2**30:.3f} GiB of parameters and "
+            f"{r['layout_bytes'] / 2**30:.3f} GiB of layout; {r['edges']} edges; "
+            f"launches {r['launches']}")
+    launches = {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+    log(f"[tools] bench_scale_standin: {wall:.2f} s for the four subprocesses")
+    return dict(rows=rows, launches=launches, run_s=wall)
+
+
+def tools_bench_seq_markov() -> dict:
+    """`bench_seq_markov` at its shapes for 30 epochs: SASRec and GRU4Rec at
+    MARKOV_MIN_VS_POPULARITY times the popularity ranker's recall@10 or
+    more (BERT4Rec's ratio reported), K1 on each eval batch."""
+    from gsrs_tpu_torch.tools import bench_seq_markov
+
+    rows, _, launches, wall = counted(bench_seq_markov.main, MARKOV_ARGS)
+    by = {r["model"]: r for r in rows}
+    for r in rows:
+        log(f"[tools] bench_seq_markov {json.dumps(r)}")
+    for kind in bench_seq_markov.KINDS:
+        check(by[kind]["launches"]["masked_scores"] > 0, f"bench_seq_markov {kind}: "
+              f"launches {by[kind]['launches']}")
+    for kind in ("sasrec", "gru4rec"):
+        check(by[kind]["vs_popularity_recall@10"] >= MARKOV_MIN_VS_POPULARITY,
+              f"bench_seq_markov {kind}: recall@10 {by[kind]['recall@10']} is "
+              f"{by[kind]['vs_popularity_recall@10']}x popularity's, under "
+              f"{MARKOV_MIN_VS_POPULARITY}x")
+    log(f"[tools] bench_seq_markov: {wall:.2f} s; vs popularity's recall@10: "
+        + ", ".join(f"{k} {by[k]['vs_popularity_recall@10']}x" for k in bench_seq_markov.KINDS))
+    return dict(rows=rows, launches=launches, run_s=wall)
+
+
 def tools_phase(dev, out_dir: str, cli_model) -> dict:
     """The ported tools, in the order of ROADMAP A8, on the card."""
     out, seconds = {}, {}
@@ -3197,7 +3435,12 @@ def tools_phase(dev, out_dir: str, cli_model) -> dict:
                            ("visualize", tools_visualize, (out_dir,)),
                            ("compute_ppr", tools_compute_ppr, (out_dir,)),
                            ("bench_spmm_modes", tools_bench_spmm_modes, (out_dir,)),
-                           ("bench_seq", tools_bench_seq, ())):
+                           ("bench_seq", tools_bench_seq, ()),
+                           ("bench_scaling", tools_bench_scaling, ()),
+                           ("sweep_xsimgcl", tools_sweep_xsimgcl, (out_dir,)),
+                           ("profile_epoch", tools_profile_epoch, (out_dir,)),
+                           ("bench_scale_standin", tools_bench_scale_standin, ()),
+                           ("bench_seq_markov", tools_bench_seq_markov, ())):
         t0 = time.perf_counter()
         out[name] = fn(*args)
         seconds[name] = time.perf_counter() - t0
@@ -4122,6 +4365,7 @@ def main() -> int:
     data = training_data()
     errs = phase("kernels", kernel_phase, dev)
     errs.update(phase("kernels_train", kernel_phase_train, dev, data))
+    ties = phase("topk_ties", exact_tie_check, dev)
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     serve = phase("serving", serving_phase, dev, GOWALLA_SHAPE, out_dir)
     train = phase("training", training_phase, dev, data)
@@ -4229,7 +4473,7 @@ def main() -> int:
         "train_device_busy": times["train_device_busy"],
         "train_step_device_us": times["train_step_device_us"],
         "train_step_wall_us": times["train_step_wall_us"],
-        "peak_device_mib_training": train["peak_mib"], "drive": drv,
+        "peak_device_mib_training": train["peak_mib"], "drive": drv, "topk_exact": ties,
         "tiled": {k: v for k, v in tiled.items() if k not in ("k4_sides", "launches")},
         "cli": {k: v for k, v in cli.items() if k != "model"},
         "zoo": zoo,

@@ -137,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop after N evals with no NDCG improvement (0 = off)")
     p.add_argument("--topk_method", type=str, default="exact",
                    choices=["exact", "approx", "threshold"],
-                   help="eval top-k: exact (torch.topk), approx (the TPU's approx_max_k fold, "
+                   help="eval top-k: exact (lax.top_k's order), approx (the TPU's approx_max_k fold, "
                    "recall >= --topk_recall_target in expectation) or threshold (exact "
                    "threshold selection)")
     p.add_argument("--topk_recall_target", type=float, default=0.98)

@@ -2,7 +2,10 @@
 ``U @ I^T``, train positives are pushed to −1e9 through the packed
 bitset, and `topk_scores` ranks them by one of three methods:
 
-- ``exact``: `torch.topk`;
+- ``exact``: `exact_topk`, ``lax.top_k``'s values and ids: `torch.topk`
+  of k + 1 columns, put in ``lax.top_k``'s order (descending, ties
+  lowest column first, +0.0 above −0.0); only rows whose k-th and
+  (k + 1)-th values tie are sorted whole;
 - ``approx``: the TPU's ``approx_max_k`` (PartialReduce, aggregated to
   top-k): each row folds into L bins, each bin keeps its max, and an
   exact top-k of the bins follows. L and the fold are XLA's
@@ -27,7 +30,8 @@ from gsrs_tpu_torch.ops.bitset import bitset_row_mask
 from gsrs_tpu_torch.ops.scoring import NEG_INF, masked_scores
 
 __all__ = ["NEG_INF", "score_users", "mask_train_positives", "topk_scores", "masked_topk",
-           "approx_bins", "topk_approx", "topk_threshold", "stable_topk"]
+           "approx_bins", "topk_approx", "topk_threshold", "stable_topk", "exact_topk",
+           "order_key"]
 
 LANE = 128  # XLA's tiling of the reduced dimension (rank > 1)
 
@@ -51,6 +55,47 @@ def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return vals[:, :k], idx[:, :k]
 
 
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """Integers in ``lax.top_k``'s order of ``scores``: XLA compares floats
+    in their total order, where −0.0 ranks below +0.0 (`torch.sort` holds
+    them equal). A float32's bits, its magnitude bits flipped when its
+    sign is set, are that order as int32; other float dtypes are compared
+    as float32 (which holds every bf16 and fp16 value). Integer scores are
+    their own key."""
+    if not scores.is_floating_point():
+        return scores
+    bits = scores.float().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _sorted_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` by a stable sort of whole rows on `order_key`."""
+    idx = torch.sort(order_key(scores), dim=1, descending=True, stable=True).indices[:, :k]
+    return scores.gather(1, idx), idx
+
+
+def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise top-k with ``lax.top_k``'s values and ids. `torch.topk`
+    promises no order among equal scores, so it takes k + 1 columns: a row
+    whose k-th value is above its (k + 1)-th has one top-k set, which two
+    sorts of its k columns (ids ascending, then values descending, stable)
+    put in ``lax.top_k``'s order; a row whose k-th and (k + 1)-th values
+    tie (the one case where the set itself depends on the tie order) is
+    sorted whole (`_sorted_topk`). Finding such rows reads one (B,) mask
+    on the host. Scores are not NaN."""
+    m = scores.shape[1]
+    vals, idx = torch.topk(scores, min(k + 1, m), dim=1)
+    tied = vals[:, k - 1] == vals[:, k] if k < m else None
+    idx, pos = torch.sort(idx[:, :k], dim=1)
+    vals, pos = _sorted_topk(vals.gather(1, pos), k)
+    idx = idx.gather(1, pos)
+    if tied is not None:
+        rows = tied.nonzero().squeeze(1)
+        if rows.numel():
+            vals[rows], idx[rows] = _sorted_topk(scores[rows], k)
+    return vals, idx
+
+
 def topk_scores(
     scores: torch.Tensor, k: int, method: str = "exact", recall_target: float = 0.95
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +107,7 @@ def topk_scores(
         return topk_threshold(scores, k)
     if method != "exact":
         raise ValueError(f"top-k method must be 'exact', 'approx' or 'threshold', got {method!r}")
-    return torch.topk(scores, k, dim=1)
+    return exact_topk(scores, k)
 
 
 # ------------------------------------------------------------------ approx

@@ -3,7 +3,8 @@
 
 - ``Retriever``: propagation has run once, before it is built; each
   request is a gather of user rows, one launch of the masked-scoring
-  CUDA kernel (`gsrs_tpu_torch.ops.scoring`) and `torch.topk`.
+  CUDA kernel (`gsrs_tpu_torch.ops.scoring`) and the exact top-k in
+  ``lax.top_k``'s order (`gsrs_tpu_torch.ops.topk.exact_topk`).
 - ``export_embeddings`` / ``load_retriever``: the npz artifact of the JAX
   package, same schema (``seen_bitset`` as uint32 words), so artifacts
   of the two packages interchange.

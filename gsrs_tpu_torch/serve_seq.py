@@ -7,7 +7,8 @@ query is the session, so nothing is precomputed per user: the artifact
 holds the model's hyperparameters and parameters, and each request chunk
 runs the encoder, one launch of the masked-scoring CUDA kernel
 (`gsrs_tpu_torch.ops.scoring`, K1) over the real item rows with the
-session's seen-items bitset, and `torch.topk`.
+session's seen-items bitset, and the exact top-k in ``lax.top_k``'s
+order (`gsrs_tpu_torch.ops.topk.exact_topk`).
 
 CLI:
   python -m gsrs_tpu_torch.serve_seq export --checkpoint_dir ckpts --out seq.npz

@@ -26,7 +26,6 @@ The model is the JAX tool's: LightGCN, 3 layers, dim 64, bf16.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import sys
 import time
@@ -90,17 +89,11 @@ def bench_dataset(name, data, model, params: Optional[Mapping], topk_variants, t
 
 
 def amazon_scale_standin():
-    """The amazon-book-scale stand-in with its held-out split."""
-    import numpy as np
+    """The amazon-book-scale stand-in with its held-out split
+    (`bench_scale_standin.held_out_standin`)."""
+    from gsrs_tpu_torch.tools.bench_scale_standin import SHAPES, held_out_standin
 
-    from gsrs_tpu_torch.stress_pod import big_synthetic
-
-    sdata = big_synthetic(52643, 91599, avg_degree=57, seed=0)
-    # 10 random items a user: eval cost depends on the test users and the
-    # catalog, not on which items are held out
-    rng = np.random.default_rng(1)
-    td = {int(u): rng.integers(0, sdata.m_items, 10) for u in range(sdata.n_users)}
-    return dataclasses.replace(sdata, test_dict=td)
+    return held_out_standin(**SHAPES["amazon-book-scale"])
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -52,7 +52,8 @@ def test_port_imports_nothing_of_jax():
                  "native.build", "parallel", "parallel.mesh", "parallel.collectives",
                  "parallel.launch", "parallel.sharding", "parallel.dist_train",
                  "parallel.shard_map_train", "parallel.seq_sharding", "parallel.dryrun",
-                 "stress_pod"):
+                 "stress_pod", "tools.bench_scaling", "tools.sweep_xsimgcl",
+                 "tools.profile_epoch", "tools.bench_scale_standin", "tools.bench_seq_markov"):
         assert f"gsrs_tpu_torch.{name}" in res["modules"]
     if res["cuda"]:
         assert res["device"] == "cuda:0"

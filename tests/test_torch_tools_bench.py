@@ -33,7 +33,8 @@ CPU = "cpu"
 METRIC_ATOL = 1e-6
 KERNELS = {"masked_scores", "masked_scores_bitplane", "ell_gather_reduce", "fused_adam"}
 TOOLS = ("eval_checkpoint", "bench_serving", "bench_eval", "visualize", "compute_ppr",
-         "bench_spmm_modes", "bench_seq")
+         "bench_spmm_modes", "bench_seq", "bench_scaling", "sweep_xsimgcl", "profile_epoch",
+         "bench_scale_standin", "bench_seq_markov")
 
 
 def _dataset_dir(root, name="tiny"):
@@ -230,7 +231,12 @@ def test_each_tool_raises_without_a_card(tmp_path, tool):
             "bench_eval": ["--dataset_dir", ds, "--skip_scale"],
             "visualize": ["gates", "--checkpoint_dir", str(tmp_path), "--dataset_dir", ds],
             "bench_spmm_modes": ["--dataset_dir", ds],
-            "bench_seq": ["--n_users", "20", "--m_items", "10"]}[tool]
+            "bench_seq": ["--n_users", "20", "--m_items", "10"],
+            "bench_scaling": ["--n_users", "20", "--m_items", "10", "--devices", "1", "2"],
+            "sweep_xsimgcl": ["--data_root", str(tmp_path), "--dataset", "tiny"],
+            "profile_epoch": ["--data_root", str(tmp_path), "--dataset", "tiny"],
+            "bench_scale_standin": ["--single", "--shapes", "yelp2018-scale"],
+            "bench_seq_markov": ["--n_users", "20", "--m_items", "10"]}[tool]
     with pytest.raises(RuntimeError, match="no CUDA device"):  # no CPU fallback
         module.main(argv)
 
