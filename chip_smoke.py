@@ -25,11 +25,14 @@
    and of the Gowalla-shaped tables; NGCF's 14 leaves at full width in fp32
    and in bf16; one launch mixing fp32 and bf16 leaves with a leaf whose
    gradient is None; views at storage offset 1 (the scalar path); 70
-   leaves (two launches a step, counted). Then the exact top-k in
-   ``lax.top_k``'s tie order at B 2048 x m 91,599, k 20: bitwise equal to
-   `stable_topk` on scores rounded to 0.1 with an all-zero row, and to the
-   CPU's result with −0.0 kept; its time beside a bare `torch.topk`'s on
-   tie-free scores.
+   leaves (two launches a step, counted). Then every ranking path (exact,
+   threshold, approx, a one-rank `merge_topk`) in ``lax.top_k``'s order
+   at B 2048 x m 91,599, k 20: exact bitwise equal to `stable_topk` on
+   scores rounded to 0.1 with an all-zero row, and with −0.0 kept; each
+   path bitwise the CPU's result on those rows (threshold's whole-batch
+   fallback) and on rows whose 20th and 21st scores are +0.0 and −0.0
+   (its candidate path), threshold and the merge bitwise exact's; their
+   times beside a bare `torch.topk`'s on tie-free scores.
 4. Serving phase, LightGCN at Gowalla's shape (a seeded power-law
    stand-in: 29,858 users × 40,981 items, average degree 27), 3 layers at
    dim 64, fp32, seeded weights: build the graph, propagate, build the
@@ -75,7 +78,7 @@
    evals draw no randomness, so its missing eval changes nothing);
    ``serve export`` then ``serve query`` must give the top-20 of
    a Retriever built from the trained model; the Evaluator with exact,
-   threshold and approx on the final parameters (threshold = exact,
+   threshold and approx on the final parameters (threshold bitwise exact,
    approx's recall at least its target less 0.02, each method's eval
    seconds); and K4 on both i2i sides against its plain version.
 10. Zoo phase, the graph family's other models and layouts at full width:
@@ -640,17 +643,72 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def boundary_rows(B: int, m: int, g: torch.Generator, dev: torch.device) -> torch.Tensor:
+    """(B, m) scores of −1.0 with 19 of 1.0, one −0.0 and one +0.0 at
+    random columns of each row: the two zeros are the 20th and 21st, and
+    `topk_threshold` at k = 20 takes its candidate path."""
+    x = torch.full((B, m), -1.0, device=dev)
+    cols = torch.rand(B, m, generator=g, device=dev).topk(21, dim=1).indices
+    x.scatter_(1, cols[:, :19], 1.0)
+    x.scatter_(1, cols[:, 19:20], torch.full((B, 1), -0.0, device=dev))
+    x.scatter_(1, cols[:, 20:21], torch.zeros(B, 1, device=dev))
+    return x
+
+
+def merged_halves(x: torch.Tensor, k: int):
+    """`merge_topk` on a one-rank mesh of the two column halves' exact
+    top-k candidates (global ids), as `dist_train.sharded_topk` merges
+    catalog shards."""
+    from gsrs_tpu_torch.ops.topk import topk_scores
+    from gsrs_tpu_torch.parallel.collectives import merge_topk
+    from gsrs_tpu_torch.parallel.mesh import single_device_mesh
+
+    h = x.shape[1] // 2
+    (v0, i0), (v1, i1) = topk_scores(x[:, :h], k, "exact"), topk_scores(x[:, h:], k, "exact")
+    return merge_topk(torch.cat([v0, v1], dim=1), torch.cat([i0, i1 + h], dim=1), k,
+                      single_device_mesh(x.device))
+
+
+TOPK_TURNS = ("topk", "exact", "threshold", "approx", "stable_topk")
+
+
+def topk_times(topk, raw: torch.Tensor, k: int) -> dict:
+    """Ms a call, between CUDA events around 20 calls (the methods read
+    the host inside, so a call's whole time, not its kernels' alone), of
+    ``torch.topk`` and of the ``topk`` module's exact, threshold, approx
+    and `stable_topk` (a whole-row sort, threshold's fallback) on ``raw``,
+    each timed twice in turns (forward, then backward through
+    `TOPK_TURNS`). ``topk`` is a module argument, so another checkout's
+    `gsrs_tpu_torch.ops.topk` can be timed beside this one's."""
+    fns = {"topk": lambda: torch.topk(raw, k, dim=1),
+           "stable_topk": lambda: topk.stable_topk(raw, k)}
+    for method in ("exact", "threshold", "approx"):
+        fns[method] = functools.partial(topk.topk_scores, raw, k, method)
+    runs = {name: [] for name in TOPK_TURNS}
+    with torch.no_grad():
+        for name in TOPK_TURNS + TOPK_TURNS[::-1]:
+            runs[name].append(cuda_ms(fns[name], reps=20, warmup=3))
+    return runs
+
+
 def exact_tie_check(dev: torch.device) -> dict:
-    """``topk_scores(·, k, "exact")`` in ``lax.top_k``'s order on the card,
-    at the amazon-book-scale eval batch: on scores rounded to 0.1 (the k-th
-    and (k + 1)-th values tie in nearly every row) with an all-zero row,
-    ids and values bitwise equal to `stable_topk`'s, on +0.0 only
-    (`stable_topk` holds −0.0 equal to +0.0, where ``lax.top_k`` ranks it
-    below); with −0.0 kept (and a row of it), 256 rows of the card's
-    result bitwise equal to the CPU's, whose order tests/test_torch_topk_ties.py
-    holds to ``lax.top_k``. Then ``exact`` beside a bare `torch.topk` on
-    tie-free scores, timed in turns (topk, exact, exact, topk)."""
-    from gsrs_tpu_torch.ops.topk import stable_topk, topk_scores
+    """``lax.top_k``'s order on the card at the amazon-book-scale eval
+    batch, on every ranking path: ``exact``, ``threshold``, ``approx`` and
+    a one-rank `merge_topk` (`merged_halves`).
+    - Scores rounded to 0.1 (the k-th and (k + 1)-th values tie in nearly
+      every row) with an all-zero row, on +0.0 only: exact's ids and
+      values bitwise `stable_topk`'s.
+    - The same with −0.0 kept and rows of +0.0 and of −0.0 (which send
+      threshold to its whole-batch fallback): exact bitwise
+      `stable_topk`'s on all rows, the merge bitwise exact's, and every
+      path's first 256 rows bitwise the CPU's result, whose order
+      tests/test_torch_topk_ties.py and tests/test_torch_topk_signed_zero.py
+      hold to ``lax.top_k``.
+    - `boundary_rows` (±0 at the k-th boundary; threshold's candidate
+      path, asserted): threshold and the merge bitwise exact, every path's
+      first 256 rows bitwise the CPU's.
+    Then `topk_times` on tie-free scores."""
+    from gsrs_tpu_torch.ops import topk
 
     B, m, k = TIE_SHAPE["B"], TIE_SHAPE["m"], TIE_SHAPE["k"]
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -659,37 +717,63 @@ def exact_tie_check(dev: torch.device) -> dict:
     signed[1] = 0.0
     signed[2] = -0.0
     ties = signed + 0.0  # −0.0 + 0.0 is +0.0
+    edge = boundary_rows(B, m, g, dev)
 
     def tied_rows(x):
         top = torch.topk(x, k + 1, dim=1).values
         return int((top[:, k - 1] == top[:, k]).sum())
 
-    with torch.no_grad():
-        got = topk_scores(ties, k, "exact")
-        want = stable_topk(ties, k)
+    def same(got, want, what):
         check(bitwise_equal(got[1], want[1]) and bitwise_equal(got[0], want[0]),
-              f"exact top-{k} on rounded scores differs from stable_topk in "
-              f"{int((got[1] != want[1]).any(dim=1).sum())} rows")
+              f"{what}: differs in {int((got[1] != want[1]).any(dim=1).sum())} rows")
+
+    paths = {"exact": lambda x: topk.topk_scores(x, k, "exact"),
+             "threshold": lambda x: topk.topk_scores(x, k, "threshold"),
+             "approx": lambda x: topk.topk_scores(x, k, "approx"),
+             "merge": lambda x: merged_halves(x, k)}
+    candidates = []
+    real_candidates = topk._threshold_candidates
+
+    def counted_candidates(*args):
+        candidates.append(args[0].device.type)
+        return real_candidates(*args)
+
+    with torch.no_grad():
+        got = topk.topk_scores(ties, k, "exact")
+        same(got, topk.stable_topk(ties, k), f"exact top-{k} on rounded scores vs stable_topk")
         check(bool((got[1][1] == torch.arange(k, device=dev)).all()),
               f"the all-zero row's top-{k} is {got[1][1].tolist()}")
-        card = topk_scores(signed, k, "exact")
-        cpu = topk_scores(signed[:256].cpu(), k, "exact")
-        check(bitwise_equal(card[1][:256].cpu(), cpu[1]) and bitwise_equal(card[0][:256].cpu(),
-                                                                            cpu[0]),
-              "exact top-k with −0.0 differs between the card and the CPU")
-        times = {"topk_ms": [], "exact_ms": []}
-        for name in ("topk_ms", "exact_ms", "exact_ms", "topk_ms"):
-            fn = ((lambda: torch.topk(raw, k, dim=1)) if name == "topk_ms"
-                  else (lambda: topk_scores(raw, k, "exact")))
-            times[name].append(cuda_ms(fn, reps=50))
+        topk._threshold_candidates = counted_candidates
+        try:
+            for rows, x in (("signed", signed), ("boundary", edge)):
+                card = {name: fn(x) for name, fn in paths.items()}
+                cpu = {name: fn(x[:256].cpu()) for name, fn in paths.items()}
+                for name in paths:
+                    same(tuple(t[:256].cpu() for t in card[name]), cpu[name],
+                         f"{name} top-{k} on the {rows} rows, card vs CPU")
+                same(card["merge"], card["exact"], f"the merge vs exact on the {rows} rows")
+                if rows == "signed":
+                    same(card["exact"], topk.stable_topk(x, k), "exact vs stable_topk with −0.0")
+                else:
+                    same(card["threshold"], card["exact"], "threshold vs exact on the boundary")
+                    check(bool(((card["exact"][0][:, k - 1] == 0)
+                                & ~torch.signbit(card["exact"][0][:, k - 1])).all()),
+                          "a boundary row's k-th score is not +0.0")
+        finally:
+            topk._threshold_candidates = real_candidates
+    # threshold's whole-batch fallback on the signed rows; its candidate path on the boundary's
+    check(candidates == ["cuda", "cpu"], f"threshold's candidate path ran on {candidates}")
+    runs = topk_times(topk, raw, k)
     out = {"tied_rows_rounded": tied_rows(ties), "tied_rows_tie_free": tied_rows(raw),
-           **{n: float(np.mean(v)) for n, v in times.items()}, "runs": times}
+           **{f"{n}_ms": float(np.mean(v)) for n, v in runs.items()}, "runs": runs}
     out["exact_over_topk"] = out["exact_ms"] / out["topk_ms"]
-    log(f"[topk] exact top-{k} at B {B} x m {m}: bitwise stable_topk's on 0.1-rounded scores "
-        f"({out['tied_rows_rounded']} of {B} rows tied at the k-th value), the CPU's with −0.0 "
-        f"kept; on tie-free scores ({out['tied_rows_tie_free']} rows tied) {out['exact_ms']:.4f} "
-        f"ms against torch.topk's {out['topk_ms']:.4f} ms ({out['exact_over_topk']:.3f}x; "
-        f"runs {times})")
+    log(f"[topk] at B {B} x m {m}, top-{k}: exact bitwise stable_topk's on 0.1-rounded scores "
+        f"({out['tied_rows_rounded']} of {B} rows tied at the k-th value) and with −0.0 kept; "
+        f"exact, threshold, approx and the one-rank merge bitwise the CPU's on those rows and "
+        f"on ±0 boundary rows, threshold and the merge bitwise exact's; on tie-free scores "
+        f"({out['tied_rows_tie_free']} rows tied) ms a call: "
+        + ", ".join(f"{n} {out[n + '_ms']:.4f}" for n in TOPK_TURNS)
+        + f" (exact {out['exact_over_topk']:.3f}x torch.topk; runs {runs})")
     return out
 
 
@@ -1953,11 +2037,13 @@ def cli_run(argv, what: str):
 
 def topk_method_checks(trainer) -> dict:
     """The Evaluator on the final parameters with exact, threshold and
-    approx: threshold's ids equal exact's (ties aside, as `same_topk`
-    treats them) and its metrics within METRIC_ATOL; approx's recall of
-    exact's top-20, averaged over the test users, at least the target
+    approx: threshold's ids bitwise exact's and its metrics within
+    METRIC_ATOL, and on each batch's K1 scores threshold's ids and values
+    bitwise exact's (both rank in ``lax.top_k``'s order); approx's recall
+    of exact's top-20, averaged over the test users, at least the target
     less APPROX_SLACK. Each method's eval seconds, warm."""
-    from gsrs_tpu_torch.ops.scoring import masked_scores_reference
+    from gsrs_tpu_torch.ops.scoring import masked_scores
+    from gsrs_tpu_torch.ops.topk import topk_scores
     from gsrs_tpu_torch.train.evaluator import Evaluator
 
     data, model, ecfg = trainer.data, trainer.model, trainer.cfg.eval
@@ -1973,26 +2059,29 @@ def topk_method_checks(trainer) -> dict:
         tops[method] = ev.top_items()
     diff = max(abs(metrics["threshold"][k] - metrics["exact"][k]) for k in metrics["exact"])
     check(diff <= METRIC_ATOL, f"threshold vs exact metrics differ by {diff}")
+    check(torch.equal(tops["threshold"], tops["exact"]), "the Evaluator's threshold ids differ "
+          f"from exact's in {int((tops['threshold'] != tops['exact']).any(dim=1).sum())} rows")
     all_users, items, _ = model.final_embeddings()
     users = torch.from_numpy(data.test_users()).to(model.user_emb.device)
+    k = tops["exact"].shape[1]
     hits = 0
     with torch.no_grad():
         for s in range(0, users.numel(), ecfg.test_batch):
             ids = users[s:s + ecfg.test_batch]
-            plain = masked_scores_reference(all_users[ids], items, ev.train_bitset[ids])
+            scores = masked_scores(all_users[ids], items, ev.train_bitset[ids])
+            got, want = topk_scores(scores, k, "threshold"), topk_scores(scores, k, "exact")
+            check(bitwise_equal(got[1], want[1]) and bitwise_equal(got[0], want[0]),
+                  f"threshold vs exact on the K1 scores of users {s}..: ids or values differ")
             rows = slice(s, s + ids.numel())
-            same_topk(tops["threshold"][rows].cpu().numpy(), plain,
-                      tops["exact"][rows].cpu().numpy(), "threshold vs exact")
             a, e = tops["approx"][rows], tops["exact"][rows]
             hits += int((a[:, :, None] == e[:, None, :]).any(dim=2).sum())
-    k = tops["exact"].shape[1]
     out["approx_recall"] = hits / (users.numel() * k)
     out["metrics"] = metrics
     target = ecfg.topk_recall_target
     check(out["approx_recall"] >= target - APPROX_SLACK,
           f"approx recall {out['approx_recall']} < {target} - {APPROX_SLACK}")
     log(f"[cli] top-k methods on the final parameters ({users.numel()} test users, top-{k}): "
-        f"threshold = exact (metrics within {diff:.1e}); approx recall of exact's top-{k} "
+        f"threshold = exact bitwise (metrics within {diff:.1e}); approx recall of exact's top-{k} "
         f"{out['approx_recall']:.4f} (target {target}); warm eval "
         + ", ".join(f"{m} {t:.4f} s" for m, t in out["eval_s"].items()))
     return out
@@ -4473,7 +4562,7 @@ def main() -> int:
         "train_device_busy": times["train_device_busy"],
         "train_step_device_us": times["train_step_device_us"],
         "train_step_wall_us": times["train_step_wall_us"],
-        "peak_device_mib_training": train["peak_mib"], "drive": drv, "topk_exact": ties,
+        "peak_device_mib_training": train["peak_mib"], "drive": drv, "topk": ties,
         "tiled": {k: v for k, v in tiled.items() if k not in ("k4_sides", "launches")},
         "cli": {k: v for k, v in cli.items() if k != "model"},
         "zoo": zoo,

@@ -12,8 +12,12 @@ bitset, and `topk_scores` ranks them by one of three methods:
   (`approx_bins`), so the expected recall of the true top-k meets
   ``recall_target``;
 - ``threshold``: exact top-k through threshold selection
-  (`topk_threshold`): values and ids equal ``lax.top_k``'s, ties
-  lowest-column-first.
+  (`topk_threshold`): values and ids equal ``lax.top_k``'s.
+
+Every sort that stands in for ``lax.top_k`` (approx's top-k of the bins,
+threshold's candidates and its full-row fallbacks, the k columns that
+``exact`` keeps, the mesh's merge) ranks by `order_key`: descending in
+XLA's total order, −0.0 below +0.0, equal scores lowest column first.
 
 `masked_topk` scores through the CUDA kernel of
 `gsrs_tpu_torch.ops.scoring` on a CUDA tensor; the ranking is plain
@@ -47,14 +51,6 @@ def mask_train_positives(
     return scores.masked_fill(bitset_row_mask(train_bitset_rows, m_items), NEG_INF)
 
 
-def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row-wise top-k as ``lax.top_k`` orders it: descending, ties
-    lowest-column-first (a stable sort; `torch.topk` does not promise
-    that order)."""
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
-
-
 def order_key(scores: torch.Tensor) -> torch.Tensor:
     """Integers in ``lax.top_k``'s order of ``scores``: XLA compares floats
     in their total order, where −0.0 ranks below +0.0 (`torch.sort` holds
@@ -68,8 +64,12 @@ def order_key(scores: torch.Tensor) -> torch.Tensor:
     return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
-def _sorted_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` by a stable sort of whole rows on `order_key`."""
+def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise top-k as ``lax.top_k`` orders it: descending in XLA's total
+    order, so −0.0 ranks below +0.0, and equal scores lowest column first.
+    A stable sort of whole rows on `order_key` (a float sort holds the two
+    zeros equal; `torch.topk` promises no order among ties), the values
+    gathered."""
     idx = torch.sort(order_key(scores), dim=1, descending=True, stable=True).indices[:, :k]
     return scores.gather(1, idx), idx
 
@@ -81,18 +81,18 @@ def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     sorts of its k columns (ids ascending, then values descending, stable)
     put in ``lax.top_k``'s order; a row whose k-th and (k + 1)-th values
     tie (the one case where the set itself depends on the tie order) is
-    sorted whole (`_sorted_topk`). Finding such rows reads one (B,) mask
+    sorted whole (`stable_topk`). Finding such rows reads one (B,) mask
     on the host. Scores are not NaN."""
     m = scores.shape[1]
     vals, idx = torch.topk(scores, min(k + 1, m), dim=1)
     tied = vals[:, k - 1] == vals[:, k] if k < m else None
     idx, pos = torch.sort(idx[:, :k], dim=1)
-    vals, pos = _sorted_topk(vals.gather(1, pos), k)
+    vals, pos = stable_topk(vals.gather(1, pos), k)
     idx = idx.gather(1, pos)
     if tied is not None:
         rows = tied.nonzero().squeeze(1)
         if rows.numel():
-            vals[rows], idx[rows] = _sorted_topk(scores[rows], k)
+            vals[rows], idx[rows] = stable_topk(scores[rows], k)
     return vals, idx
 
 
@@ -153,8 +153,10 @@ def topk_approx(
     aggregate_to_topk=True)`` as the TPU computes it: the row, padded
     with −inf to L·2^r columns, folds into L bins (bin j holds columns
     j, j + L, j + 2L, …), each bin keeps its max and the first column
-    holding it, and an exact top-k of the L bins follows. The pad is
-    −inf, below the −1e9 of a masked item. r = 0 is an exact top-k."""
+    holding it, and `stable_topk` of the L bins follows. The pad is
+    −inf, below the −1e9 of a masked item. r = 0 is `stable_topk`. The
+    fold holds −0.0 equal to +0.0 within a bin: which of the two the
+    TPU's PartialReduce keeps is not known."""
     B, m = scores.shape
     L, r = approx_bins(m, k, recall_target)
     if r == 0 or k >= L:
@@ -171,9 +173,9 @@ def topk_approx(
 
 def _threshold_candidates(scores, t, c, k: int, cap: int):
     """The (up to cap) columns scoring >= t[row], in ascending column
-    order, then a stable descending sort of those candidates: exact when
-    c[row] = count(score >= t) lies in [k, cap], with ties lowest column
-    first as ``lax.top_k``."""
+    order, then `stable_topk` of those candidates: exact when c[row] =
+    count(score >= t) lies in [k, cap], in ``lax.top_k``'s order. The
+    empty slots hold −inf, whose key is below every score's."""
     csum = torch.cumsum(scores >= t[:, None], dim=1, dtype=torch.int32)  # (B, m)
     targets = torch.arange(1, cap + 1, dtype=torch.int32, device=scores.device)
     cols = torch.searchsorted(csum, targets.expand(scores.shape[0], cap).contiguous(),
@@ -194,9 +196,9 @@ def topk_threshold(
     rows whose candidate count lies outside [min(k, finite), cap] (rows
     already in the band are frozen, so the fixed count of steps gives
     JAX's while loop's result), then the candidates in column order and a
-    small stable sort. One host read per call decides whether every row
-    landed in the band; if not, the whole batch takes the stable full
-    sort, as JAX's ``lax.cond`` takes ``lax.top_k``. Rows with fewer than
+    small `stable_topk`. One host read per call decides whether every row
+    landed in the band; if not, the whole batch takes `stable_topk` of the
+    full rows, as JAX's ``lax.cond`` takes ``lax.top_k``. Rows with fewer than
     k unmasked scores fill their last slots with −inf at column 0."""
     B, m = scores.shape
     if k >= m or m <= max(1024, 2 * cap):

@@ -26,9 +26,9 @@ and rounds the sum once to their dtype, so a bf16 layer's partials are
 rounded as one card rounds its layer's sum, once, whatever the backend
 and the number of ranks.
 
-`merge_topk` merges the catalog shards' top-k over the model axis with
-JAX's tie order (`lax.top_k`: the lower item id first), which
-`torch.topk` does not promise.
+`merge_topk` merges the catalog shards' top-k over the model axis in
+`lax.top_k`'s order (−0.0 below +0.0, then the lower item id first),
+which neither `torch.topk` nor a float sort gives.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from typing import Iterable, List, Tuple
 import torch
 import torch.distributed as dist
 
+from gsrs_tpu_torch.ops.topk import stable_topk
 from gsrs_tpu_torch.parallel.mesh import Mesh
 
 
@@ -144,13 +145,15 @@ def sum_replicated_grads(params: Iterable[torch.nn.Parameter], mesh: Mesh) -> No
 def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
                mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """The top ``k`` of the model axis's (B, k') candidates (values,
-    global ids) → (B, k) values and ids on every model rank, descending,
-    ties broken by the lower id as `lax.top_k` breaks them."""
+    global ids) → (B, k) values and ids on every model rank in
+    `lax.top_k`'s order: descending in XLA's total order (−0.0 below
+    +0.0), equal values by the lower id: `stable_topk` of the candidates
+    put in id order. A shard's −inf pads (at id m_total) rank below every
+    score."""
     vals, ids = all_gather_cols(vals, mesh), all_gather_cols(ids, mesh)
     by_id = torch.argsort(ids, dim=1, stable=True)
-    vals, ids = vals.gather(1, by_id), ids.gather(1, by_id)
-    order = torch.sort(vals, dim=1, descending=True, stable=True)[1][:, :k]
-    return vals.gather(1, order), ids.gather(1, order)
+    vals, order = stable_topk(vals.gather(1, by_id), k)
+    return vals, ids.gather(1, by_id).gather(1, order)
 
 
 def all_gather_cols(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -7,12 +7,16 @@ under the port's loss convention: each rank back-propagating its share
 gives every rank its rows of the single-process gradient (within a
 relative 1e-6 and 1e-6: fp32 sums of a few terms in another order), and back-propagating the reduced loss
 instead (the control) gives 4× the gradient. The top-k merge orders ties
-by the lower id, as `lax.top_k` does."""
+by the lower id, as `lax.top_k` does; on a 1 × 4 mesh of the same ranks,
+whose blocks hold −0.0 and +0.0 on different ranks (and pad with −inf at
+id m, as `dist_train.sharded_topk` pads), it ranks −0.0 below +0.0 and
+returns `lax.top_k`'s ids and values of the whole row bit for bit."""
 
 import numpy as np
 import pytest
 import torch
 
+from gsrs_tpu_torch.ops.topk import topk_scores
 from gsrs_tpu_torch.parallel import collectives as C
 from gsrs_tpu_torch.parallel.launch import spawn
 from gsrs_tpu_torch.parallel.mesh import (
@@ -21,6 +25,22 @@ from gsrs_tpu_torch.parallel.mesh import (
 
 GRAD_RTOL = GRAD_ATOL = 1e-6
 N_ROWS, DIM, BATCH = 8, 3, 8
+SIGNED_M, SIGNED_KS = 64, (20, 21, 64)  # 4 blocks of 16: k = 64 reaches every block's pads
+
+
+def signed_zero_rows() -> np.ndarray:
+    """(3, 64): −1.0 with 19 ones (and two −1e9 masked entries) spread
+    over the four blocks; row 0 has −0.0 at id 5 (block 0) and +0.0 at id
+    40 (block 2), row 1 the two swapped; row 2 is seeded normals rounded
+    to integers, many of them ±0."""
+    rng = np.random.default_rng(11)
+    x = np.full((3, SIGNED_M), -1.0, np.float32)
+    for r, (neg, pos) in enumerate([(5, 40), (40, 5)]):
+        cols = rng.permutation(np.setdiff1d(np.arange(SIGNED_M), [neg, pos]))
+        x[r, cols[:19]], x[r, cols[19:21]] = 1.0, -1e9
+        x[r, neg], x[r, pos] = -0.0, 0.0
+    x[2] = np.round(rng.standard_normal(SIGNED_M)).astype(np.float32)
+    return x
 
 
 def problem():
@@ -62,6 +82,17 @@ def _collectives_rank(device):
     out["merge"] = C.merge_topk(vals, ids, 4, mesh)
     out["bcast"] = C.broadcast_object({"rank": mesh.rank} if mesh.is_primary else None, mesh)
     out["gathered"] = C.all_gather(torch.tensor([mesh.rank]), mesh, "data")
+    line = make_mesh(data_axis=1, model_axis=4, device=device)
+    c = SIGNED_M // 4
+    lo = line.model_index * c
+    block = torch.from_numpy(signed_zero_rows()[:, lo:lo + c].copy())
+    out["merge_signed"] = {}
+    for k in SIGNED_KS:
+        vals, idx = topk_scores(block, min(k, c), "exact")
+        pad = (block.shape[0], k - vals.shape[1])
+        vals = torch.cat([vals, vals.new_full(pad, float("-inf"))], dim=1)
+        ids = torch.cat([idx + lo, idx.new_full(pad, SIGNED_M)], dim=1)
+        out["merge_signed"][k] = C.merge_topk(vals, ids, k, line)
     return out
 
 
@@ -101,6 +132,18 @@ def test_merge_orders_ties_by_the_lower_id_and_broadcast_reaches_every_rank(rank
         np.testing.assert_array_equal(ids.numpy(), [[0, 6, 1, 2], [4, 10, 3, 9]])
         assert out["bcast"] == {"rank": 0}
         np.testing.assert_array_equal(out["gathered"].numpy(), [r % 2, r % 2 + 2])
+
+
+def test_merge_ranks_signed_zeros_on_four_ranks_as_lax_top_k(ranks):
+    jax = pytest.importorskip("jax", reason="the JAX package is the reference")
+    x = signed_zero_rows()
+    assert ((x == 0) & np.signbit(x)).any(axis=1).all()
+    for k in SIGNED_KS:
+        wv, wi = (np.asarray(a) for a in jax.lax.top_k(x, k))
+        for out in ranks:
+            vals, ids = out["merge_signed"][k]
+            np.testing.assert_array_equal(ids.numpy(), wi)
+            np.testing.assert_array_equal(vals.numpy().view(np.int32), wv.view(np.int32))
 
 
 def test_mesh_is_row_major_and_the_backend_is_asked_for():

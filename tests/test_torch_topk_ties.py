@@ -63,14 +63,14 @@ def test_exact_sorts_only_the_rows_tied_at_k(jax_exact, monkeypatch):
     x = np.arange(4 * M, dtype=np.float32).reshape(4, M)
     x[2, :] = 1.0  # tied across every boundary
     sorted_rows = []
-    original = ttopk._sorted_topk
+    original = ttopk.stable_topk
 
     def spy(scores, k):
         if scores.shape[1] == M:  # a whole row, not the k columns kept
             sorted_rows.append(scores.shape[0])
         return original(scores, k)
 
-    monkeypatch.setattr(ttopk, "_sorted_topk", spy)
+    monkeypatch.setattr(ttopk, "stable_topk", spy)
     _bitwise_equal(ttopk.topk_scores(torch.from_numpy(x), 5, "exact"), jax_exact(x, 5))
     assert sorted_rows == [1]
 
