@@ -123,17 +123,36 @@
    request p50 at 1 and 64 sessions and K1's time at those shapes; the
    learning check (SASRec on ``--synthetic`` Markov data: recall@10 above
    twice its start and above 0.2); and the native host sampler's build.
-12. Tools phase, the JAX package's user tools as ported in
+12. Hits phase: the stand-in holds out each user's least popular item,
+   so a trained graph model scores 0 there and a check that holds its
+   metrics equal holds zeros equal. So LightGCN at full width (3 layers,
+   dim 64, ELL fp32, exact top-k, the fused Adam kernel, lr 5e-2) goes
+   through `gsrs_tpu_torch.cli.main` for 10 epochs, counted, on a clustered
+   set of 8,000 users x 10,000 items in 64 clusters (degree about 28; each
+   test item an unseen item of the user's cluster): K4 on both sides, K3
+   once a step, K1 once an eval batch; its last recall@20 at least 10x
+   chance (the mean over test users of 20 over their unseen items), and
+   the same parameters on a split of random unseen test items (the
+   control) below that floor. On that run: card against CPU (metrics
+   within 1e-6, every test user's top-20 ids equal but for boundary
+   swaps), threshold's metrics and ids equal exact's and approx's recall
+   at its target less 0.02, and the natural and bit-plane Retrievers'
+   top-20 over every test user equal (K1 on one side, K2 on the other).
+13. Tools phase, the JAX package's user tools as ported in
    `gsrs_tpu_torch.tools`, each through its ``main`` on the card, counted,
-   on what the CLI, zoo and seq phases left: ``eval_checkpoint`` of the
-   zoo's lgn_segment run and of the SASRec run, each reproducing the run's
-   last valid CSV row within METRIC_ATOL (K1, and K4 on the graph);
+   on what the CLI, zoo, seq and hits phases left: ``eval_checkpoint`` of
+   the zoo's lgn_segment run, of the SASRec run and of the hits run, each
+   reproducing the run's last valid CSV row within METRIC_ATOL (the hits
+   run's at least its floor; K1, and K4 on the graph);
    ``bench_serving`` on the CLI run's checkpoint (its rows, K1 on each; its
    fp32 batch-256 top-20 equal to a Retriever of the CLI run's model);
    ``bench_eval``'s five variants on the stand-in (the lgn_segment
    parameters) and the amazon-book-scale stand-in (52,643 × 91,599): K2 in
    the bit-plane row only, K1 in the others, exact and bit-plane metrics
-   within METRIC_ATOL; K1 and K2 at B 2048 × d 64 × m 91,599 against their
+   within METRIC_ATOL; and on the hits run (``--skip_scale``), whose exact,
+   natural and bit-plane rows agree within METRIC_ATOL at or above its
+   floor, and whose approx row reaches its target less 0.02 of exact's;
+   K1 and K2 at B 2048 × d 64 × m 91,599 against their
    plain versions, timed beside their bound and `torch.matmul`;
    ``visualize``'s pop gates of the CLI run on the card against the CPU
    within 1e-5 (K4) and its curve series; ``compute_ppr``'s rows summing
@@ -152,7 +171,7 @@
    device memory in use beside the parameters' and layout's bytes, K4 and
    K1); ``bench_seq_markov`` at its shapes for 30 epochs (SASRec and
    GRU4Rec at 5x the popularity ranker's recall@10 or more).
-13. Mesh phase: the (data, model) mesh of ``gsrs_tpu_torch.parallel`` on
+14. Mesh phase: the (data, model) mesh of ``gsrs_tpu_torch.parallel`` on
    the card, at full width, fp32, on the ELL layout: four gloo ranks on
    the one card form a 2 × 2 mesh (NCCL refuses two ranks on one
    device); in every rank `cli.main` trains LightGCN for 10 steps of 2048
@@ -161,7 +180,9 @@
    `make_shard_map_train_step` from seeded parameters, a sharded eval and
    4 requests × 256 users of the sharded Retriever, each against the
    single card on the same parameters and batches (losses, parameters,
-   metrics, top-20), with a control (the model-axis copies not divided
+   metrics, top-20), and the hits run restored on the mesh and evaluated
+   sharded (equal on every rank, within 1e-6 of one card's, at or above
+   its floor), with a control (the model-axis copies not divided
    out: the loss doubles) that must fail the loss limit; SASRec through
    `seq_cli` on the same mesh against the card. Every rank must launch
    K4, K1 and K3 (K3 once per step of its CLI run and resume). Readings:
@@ -181,12 +202,12 @@
    a bf16 tensor themselves. Then NCCL: the CLI across min(cards, 4) cards
    when there are two or more, else a one-rank NCCL group running the
    mesh step on this card; the line says which.
-14. Stress phase, ``python -m gsrs_tpu_torch.stress_pod`` through its
+15. Stress phase, ``python -m gsrs_tpu_torch.stress_pod`` through its
    `main`: BASELINE config 5's plan on H100s (``--plan_only --chip
    h100``), one counted run on the card at 1M users x 500k items, dim 256
    (K4, K1 launched, K3 once per step; its peak device memory beside the plan's total),
    K1 timed at its eval's shape, then ``--smoke`` on four gloo ranks.
-15. Times each kernel by its device time (the kernels' own time in
+16. Times each kernel by its device time (the kernels' own time in
    torch.profiler's device-side events over a window of launches, after a
    warm-up; CUDA events around the same calls are logged beside it where
    the two differ by more than 10%) beside its bound, its plain version
@@ -236,6 +257,9 @@ ELL_BF16_RTOL = 2.0**-8
 ELL_BF16_ATOL = 1e-5  # ... plus the fp32 order difference near zero
 TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: parameters and losses
 METRIC_ATOL = 1e-6  # card vs CPU eval metrics
+# the hits phase's trained recall@20 must reach this multiple of chance (`chance_recall`), and
+# its random-item control must stay below it
+HITS_FLOOR_VS_CHANCE = 10.0
 # the tiled phase: bench.py's layout, and a small one for the card-vs-CPU steps
 TILED_G, TILED_C = 64, 2048
 SMALL_G, SMALL_C = 16, 256
@@ -260,6 +284,14 @@ TILED_BF16_PARAM_SHARE = 1e-3
 CLI_DATASET, CLI_EPOCHS = "cli_data", 3
 RESUME_ATOL = 1e-6  # resumed vs uninterrupted parameters on the card
 APPROX_SLACK = 0.02  # approx's measured recall may fall this far under its target
+# the hits phase: LightGCN at full width through the CLI on a clustered set whose test item is
+# an unseen item of the user's cluster, which a trained model ranks far above chance (the
+# stand-in holds out each user's least popular item, and its trained metrics read 0). 156
+# items and 125 users a cluster, degree about 28 (Gowalla's 27), one test item a user
+HITS_DATASET, HITS_CKPT = "hits_data", "hits_ckpt"
+HITS_SHAPE = dict(n_users=8000, m_items=10000, n_clusters=64, in_cluster_p=0.12,
+                  cross_cluster_p=0.00084)
+HITS_EPOCHS, HITS_LR = 10, 5e-2
 # the zoo phase: each model and layout of the graph family through the CLI for one epoch
 ZOO_RUNS = {
     "mf": ["--model", "mf"],
@@ -1385,6 +1417,39 @@ def eval_phase(dev, train: dict) -> dict:
     return dict(metrics=card, eval_s=eval2_s, launches=launches)
 
 
+def hits_card_vs_cpu(trainer, state, floor: float) -> dict:
+    """`eval_phase`'s comparison on the hits run, where a trained model
+    hits: `Trainer.evaluate` on the card and a CPU Evaluator from the same
+    parameters within METRIC_ATOL, recall@20 at least ``floor``, and every
+    test user's top-20 ids equal on both, boundary swaps aside."""
+    from gsrs_tpu_torch import cli
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.ops.scoring import masked_scores_reference
+    from gsrs_tpu_torch.train.evaluator import Evaluator
+
+    data, model, cpu = trainer.data, trainer.model, torch.device("cpu")
+    card = trainer.evaluate(state)
+    cpu_model = build_model(trainer.cfg.model, trainer.graph, None,
+                            cli.layout_from_interactions(trainer.cfg.model, data), device=cpu)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_ev = Evaluator(data, cpu_model, trainer.cfg.eval, device=cpu)
+    on_cpu = cpu_ev.run()
+    check(set(card) == set(on_cpu), "metric names differ")
+    worst = max(abs(card[k] - on_cpu[k]) for k in card)
+    check(worst <= METRIC_ATOL, f"hits: card vs CPU metrics differ by {worst}: {card} vs {on_cpu}")
+    check(card[f"recall@{K}"] >= floor, f"hits: recall@{K} {card[f'recall@{K}']} < floor {floor}")
+    users = torch.from_numpy(data.test_users()).to(model.user_emb.device)
+    with torch.no_grad():
+        all_users, items, _ = model.final_embeddings()
+        plain = masked_scores_reference(all_users[users], items,
+                                        trainer.sampler_state.train_bitset[users])
+        same_topk(trainer.evaluator.top_items().cpu(), plain, cpu_ev.top_items(),
+                  f"hits card vs CPU top-{K} of {users.numel()} test users")
+    log(f"[hits] card {card}; CPU {on_cpu}; max diff {worst:.2e}; every test user's top-{K} ids "
+        "equal, boundary swaps aside")
+    return dict(card=card, cpu=on_cpu, max_diff=worst, plain_scores=plain)
+
+
 def drive_phase(dev) -> dict:
     from gsrs_tpu_torch.drive import drive
 
@@ -1991,9 +2056,9 @@ def run_quiet(fn, *args, **kw):
 
 
 def write_cli_dataset(data, data_dir: str) -> float:
-    """The stand-in as a dataset directory (train.txt, test.txt) with its
-    ids as they are, so the run keeps the 29,858 × 40,981 shape →
-    seconds."""
+    """``data`` as a dataset directory (train.txt, test.txt) with its ids
+    as they are, so a run keeps its shape (the stand-in's 29,858 × 40,981)
+    → seconds."""
     from gsrs_tpu_torch.data.dataset import write_interaction_file
 
     t0 = time.perf_counter()
@@ -3143,11 +3208,151 @@ def seq_phase(dev, out_dir: str) -> dict:
                 launches={"masked_scores": k1})
 
 
+# ---------------------------------------------------------------- hits phase
+
+
+def chance_recall(data, k: int) -> float:
+    """A random ranker's expected recall@k: the mean over the test users
+    of k over the items each has not seen in training."""
+    degree = np.bincount(data.train_users, minlength=data.n_users)
+    users = data.test_users()
+    return float(np.mean(k / (data.m_items - degree[users])))
+
+
+def random_test_split(data, seed: int):
+    """``data`` with each test user's held-out item replaced by an item the
+    user has not seen, drawn uniformly by a seeded numpy generator: the
+    control, on which a trained model reads about chance."""
+    rng = np.random.default_rng(seed)
+    users, m = data.test_users(), data.m_items
+    seen = data.train_users * m + data.train_items
+    items = rng.integers(0, m, users.size)
+    while True:
+        again = np.isin(users * m + items, seen)
+        if not again.any():
+            break
+        items[again] = rng.integers(0, m, int(again.sum()))
+    return dataclasses.replace(data, test_dict={int(u): np.array([i], dtype=np.int64)
+                                                for u, i in zip(users, items)})
+
+
+def hits_argv(root: str) -> list:
+    return ["--data_root", root, "--dataset", HITS_DATASET, "--model", "lgn", "--spmm", "ell",
+            "--recdim", "64", "--layer", "3", "--bpr_batch", "2048", "--lr", str(HITS_LR),
+            "--epochs", str(HITS_EPOCHS), "--eval_every", "1", "--topk_method", "exact",
+            "--fused_adam", "pallas", "--tensorboard", "0",
+            "--checkpoint_dir", os.path.join(root, HITS_CKPT)]
+
+
+def hits_layouts(trainer, plain: torch.Tensor) -> dict:
+    """Retrievers of the hits run's model in the natural
+    (``use_pallas_scoring="off"``) and the bit-plane layout ("on") over
+    every test user: the same top-20 ids, boundary swaps aside, with K1
+    launched on the natural side only and K2 on the bit-plane side only."""
+    from gsrs_tpu_torch.kernels import launch_counts, launches_since
+    from gsrs_tpu_torch.serve import Retriever, retriever_from_model
+
+    live = retriever_from_model(trainer.model, trainer.data, batch_size=BATCH)
+    users = trainer.data.test_users()
+    tops, launches = {}, {}
+    for mode in ("off", "on"):
+        r = Retriever(live.user_emb, live.item_emb, live.seen_bitset, batch_size=BATCH,
+                      use_pallas_scoring=mode, device=live.device)
+        before = launch_counts()
+        tops[mode] = r.recommend(users, k=K)[0]
+        launches[mode] = launches_since(before)
+    check(launches["off"]["masked_scores"] > 0 and launches["off"]["masked_scores_bitplane"] == 0
+          and launches["on"]["masked_scores_bitplane"] > 0
+          and launches["on"]["masked_scores"] == 0,
+          f"hits Retrievers: launches natural {launches['off']}, bit-plane {launches['on']}")
+    check(bool((tops["off"] >= 0).all()), "a test user has fewer than K unseen items")
+    same_topk(tops["on"], plain, tops["off"], f"hits bit-plane vs natural Retriever top-{K}")
+    log(f"[hits] the bit-plane and natural Retrievers' top-{K} of {users.size} test users equal, "
+        f"boundary swaps aside; launches {launches}")
+    return launches
+
+
+def hits_phase(dev, out_dir: str) -> dict:
+    """LightGCN at full width (3 layers, dim 64, ELL fp32, exact top-k, the
+    fused Adam kernel) through `cli.main` on the clustered set of
+    HITS_SHAPE for HITS_EPOCHS epochs with an eval each, counted: K4 on
+    both sides, K3 once a step, K1 once an eval batch; its last recall@20
+    at least HITS_FLOOR_VS_CHANCE times chance, and the same parameters on
+    a random-item test split (the control) below that floor; the card
+    against the CPU (`hits_card_vs_cpu`); the three top-k methods
+    (`topk_method_checks`, threshold at least the floor); the natural and
+    bit-plane Retrievers (`hits_layouts`). The tools phase (bench_eval,
+    eval_checkpoint) and the mesh phase (its sharded eval) hold their
+    checks on this run's checkpoint too."""
+    import shutil
+
+    from gsrs_tpu_torch import cli
+    from gsrs_tpu_torch.data import synthetic
+    from gsrs_tpu_torch.train.evaluator import Evaluator
+
+    data_dir, ckpt = (os.path.join(out_dir, d) for d in (HITS_DATASET, HITS_CKPT))
+    for d in (data_dir, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_cli_dataset(synthetic.clustered(**HITS_SHAPE, seed=SEED), data_dir)
+    data_s = time.perf_counter() - t0
+
+    (tr, state), _, launches, run_s = counted(cli.main, hits_argv(out_dir))
+    data, model = tr.data, tr.model
+    chance = chance_recall(data, K)
+    floor = HITS_FLOOR_VS_CHANCE * chance
+    rows = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))
+    steps = HITS_EPOCHS * tr.steps_per_epoch
+    n_batches = tr.evaluator._users.shape[0]
+    log(f"[hits] {data.n_users} users x {data.m_items} items, {data.train_size} train edges "
+        f"(degree {data.train_size / data.n_users:.2f}), {len(data.test_dict)} test users; written "
+        f"in {data_s:.2f} s; chance recall@{K} {chance:.6f}, floor {floor:.6f}; the run "
+        f"{run_s:.2f} s, {steps} steps of 2048, launches {launches}")
+    for r in rows:
+        log(f"[hits] eval at epoch {r['epoch']}: recall@{K} {r[f'recall@{K}']}, ndcg@{K} "
+            f"{r[f'ndcg@{K}']}")
+    check(state.epoch == HITS_EPOCHS, f"the hits run ended at epoch {state.epoch}")
+    check([r["epoch"] for r in rows] == [str(e) for e in range(HITS_EPOCHS + 1)],
+          f"hits valid CSV {rows}")
+    check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
+          f"hits: fused_adam launched {launches['fused_adam']} times in {steps} steps")
+    check(launches["masked_scores"] == len(rows) * n_batches
+          and launches["masked_scores_bitplane"] == 0,
+          f"hits: K1/K2 launched {launches} for {len(rows)} evals of {n_batches} batches")
+    for side in (model.ell.by_user, model.ell.by_item):  # each layer's forward and backward
+        check(side.table.launches >= 2 * model.cfg.num_layers * steps,
+              f"hits: K4 launched {side.table.launches} times on a side in {steps} steps")
+    last = {k: float(v) for k, v in rows[-1].items() if "@" in k}
+    check(last[f"recall@{K}"] >= floor, f"hits: the run's last recall@{K} {last} < floor {floor}")
+
+    control = Evaluator(random_test_split(data, SEED + 1), model, tr.cfg.eval,
+                        train_bitset=tr.sampler_state.train_bitset, device=dev).run()
+    check(control[f"recall@{K}"] < floor,
+          f"hits: the random-item control reads recall@{K} {control} >= floor {floor}")
+    log(f"[hits] control (each test item replaced by a random unseen item): {control}")
+
+    vs_cpu = hits_card_vs_cpu(tr, state, floor)
+    methods = topk_method_checks(tr)
+    check(methods["metrics"]["threshold"][f"recall@{K}"] >= floor,
+          f"hits: threshold's recall@{K} {methods['metrics']['threshold']} < floor {floor}")
+    layouts = hits_layouts(tr, vs_cpu.pop("plain_scores"))
+    phase_launches = read_counts()  # zeroed by `counted` before the run
+    torch.cuda.empty_cache()
+    return dict(dataset=data_dir, ckpt=ckpt, shape=HITS_SHAPE, train_edges=data.train_size,
+                test_users=len(data.test_dict), chance=chance, floor=floor, last=last,
+                control=control, card_vs_cpu=vs_cpu, topk_methods=methods,
+                layout_launches=layouts, run_launches=launches, launches=phase_launches,
+                run_s=run_s, write_dataset_s=data_s,
+                epoch_s=[float(r["time_sec"]) for r in csv_rows(
+                    os.path.join(ckpt, "train_epoch_metrics.csv"))])
+
+
 # --------------------------------------------------------------- tools phase
 # The JAX package's user tools, ported (`gsrs_tpu_torch.tools`), each through its `main` on the
-# card, on what the CLI, zoo and seq phases left under the smoke's directory: the stand-in's
-# dataset directory, the CLI run's pop-gate checkpoint (bf16, i2i, approx top-k), the zoo's
-# lgn_segment run (fp32, exact top-k) and the seq phase's SASRec run (exact top-k, resumed)
+# card, on what the CLI, zoo, seq and hits phases left under the smoke's directory: the
+# stand-in's dataset directory, the CLI run's pop-gate checkpoint (bf16, i2i, approx top-k), the
+# zoo's lgn_segment run (fp32, exact top-k), the seq phase's SASRec run (exact top-k, resumed)
+# and the hits phase's clustered dataset and run (fp32, exact top-k)
 TOOLS_GRAPH_CKPT = "zoo_lgn_segment"
 TOOLS_SEQ_CKPT = "seq_sasrec"
 TOOLS_SEQ_EVAL = ["--testbatch", "256", "--topks", "[10,20]"]  # seq_cli's eval batch and top-k
@@ -3184,20 +3389,22 @@ def counted(fn, *args, **kw):
     return out, text, read_counts(), time.perf_counter() - t0
 
 
-def tools_eval_checkpoint(root: str) -> dict:
-    """`eval_checkpoint` on the zoo's lgn_segment run and the seq phase's
-    SASRec run (each evaluated with exact top-k): the last row of each
-    run's valid CSV within METRIC_ATOL; K1 launched, K4 on the graph path
+def tools_eval_checkpoint(root: str, hits_floor: float) -> dict:
+    """`eval_checkpoint` on the zoo's lgn_segment run, the seq phase's
+    SASRec run and the hits run (each evaluated with exact top-k): the
+    last row of each run's valid CSV within METRIC_ATOL, the hits run's at
+    least ``hits_floor`` in recall@20; K1 launched, K4 on the graph paths
     only, no K2 or K3."""
     from gsrs_tpu_torch.tools import eval_checkpoint
 
     out = {}
-    for name, ckpt, extra in (("graph", TOOLS_GRAPH_CKPT, []),
-                              ("sasrec", TOOLS_SEQ_CKPT, TOOLS_SEQ_EVAL)):
+    for name, ckpt, dataset, extra in (("graph", TOOLS_GRAPH_CKPT, CLI_DATASET, []),
+                                       ("sasrec", TOOLS_SEQ_CKPT, CLI_DATASET, TOOLS_SEQ_EVAL),
+                                       ("hits", HITS_CKPT, HITS_DATASET, [])):
         ckpt = os.path.join(root, ckpt)
         metrics, text, launches, wall = counted(
             eval_checkpoint.main, ["--checkpoint_dir", ckpt, "--data_root", root, "--dataset",
-                                   CLI_DATASET] + extra)
+                                   dataset] + extra)
         last = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))[-1]
         want = {k: float(v) for k, v in last.items() if "@" in k}
         check(set(metrics) == set(want), f"eval_checkpoint {name}: {sorted(metrics)} vs the CSV's "
@@ -3207,13 +3414,16 @@ def tools_eval_checkpoint(root: str) -> dict:
               f"run's last eval {want} by {diff}")
         check(launches["masked_scores"] > 0 and launches["masked_scores_bitplane"] == 0
               and launches["fused_adam"] == 0, f"eval_checkpoint {name}: launches {launches}")
-        check((launches["ell_gather_reduce"] > 0) == (name == "graph"),
+        check((launches["ell_gather_reduce"] > 0) == (name != "sasrec"),
               f"eval_checkpoint {name}: K4 launched {launches['ell_gather_reduce']} times")
+        if name == "hits":
+            check(want[f"recall@{K}"] >= hits_floor, f"eval_checkpoint hits: the run's last eval "
+                  f"{want} is under the floor {hits_floor}")
         out[name] = dict(max_diff=diff, launches=launches, run_s=wall,
                          epoch=int(last["epoch"]), metrics=metrics)
         log(f"[tools] eval_checkpoint {name} (epoch {last['epoch']}): {wall:.2f} s; the run's last "
-            f"eval reproduced within {diff:.1e}; launches {launches}")
-    out["launches"] = {k: out["graph"]["launches"][k] + out["sasrec"]["launches"][k]
+            f"eval {want} reproduced within {diff:.1e}; launches {launches}")
+    out["launches"] = {k: sum(out[name]["launches"][k] for name in ("graph", "sasrec", "hits"))
                        for k in out["graph"]["launches"]}
     return out
 
@@ -3253,35 +3463,67 @@ def tools_bench_serving(dev, root: str, cli_model) -> dict:
     return dict(rows=rows, launches=launches, run_s=wall)
 
 
-def tools_bench_eval(dev, root: str) -> dict:
+def bench_eval_launches(rows, what: str) -> None:
+    """K2 in each bit-plane row only, K1 in the others."""
+    for r in rows:
+        k1, k2 = r["launches"]["masked_scores"], r["launches"]["masked_scores_bitplane"]
+        bitplane = r["variant"] == "pallas-bitplane+exact"
+        check((k2 > 0 and k1 == 0) if bitplane else (k1 > 0 and k2 == 0),
+              f"bench_eval {what} {r['dataset']} {r['variant']}: K1 {k1}, K2 {k2}")
+        log(f"[tools] bench_eval {what} {json.dumps(r)}")
+
+
+def tools_bench_eval(dev, root: str, hits_floor: float) -> dict:
     """`bench_eval` on the stand-in's directory (the zoo's lgn_segment
     parameters) and the amazon-book-scale stand-in, all five variants: K2
     in the bit-plane row only, K1 in the others; exact and bit-plane
-    metrics within METRIC_ATOL; then K1 and K2 at the amazon-book eval
-    shape against their plain versions, timed."""
+    metrics within METRIC_ATOL. Then on the hits run (``--skip_scale``),
+    where a trained model hits: the exact, natural and bit-plane rows
+    within METRIC_ATOL and at least ``hits_floor`` in recall@20, approx's
+    at least its target less APPROX_SLACK of exact's. Then K1 and K2 at
+    the amazon-book eval shape against their plain versions, timed."""
     from gsrs_tpu_torch.tools import bench_eval
 
     rows, text, launches, wall = counted(
         bench_eval.main, ["--dataset_dir", os.path.join(root, CLI_DATASET), "--checkpoint_dir",
                           os.path.join(root, TOOLS_GRAPH_CKPT)])
     check(len(rows) == 10, f"bench_eval printed {len(rows)} rows")
-    for r in rows:
-        k1, k2 = r["launches"]["masked_scores"], r["launches"]["masked_scores_bitplane"]
-        bitplane = r["variant"] == "pallas-bitplane+exact"
-        check((k2 > 0 and k1 == 0) if bitplane else (k1 > 0 and k2 == 0),
-              f"bench_eval {r['dataset']} {r['variant']}: K1 {k1}, K2 {k2}")
-        log(f"[tools] bench_eval {json.dumps(r)}")
+    bench_eval_launches(rows, "stand-in")
     for name in ("gowalla", "amazon-book-scale"):
         by = {r["variant"]: r for r in rows if r["dataset"] == name}
         diff = max(abs(by["exact"][k] - by["pallas-bitplane+exact"][k])
                    for k in ("recall@20", "ndcg@20"))
         check(diff <= METRIC_ATOL, f"bench_eval {name}: exact and bit-plane differ by {diff}")
+    hits, text, hits_launches, hits_s = counted(
+        bench_eval.main, ["--dataset_dir", os.path.join(root, HITS_DATASET), "--checkpoint_dir",
+                          os.path.join(root, HITS_CKPT), "--skip_scale"])
+    check(len(hits) == 5, f"bench_eval on the hits run printed {len(hits)} rows")
+    check("restored" in text, "bench_eval did not restore the hits run's checkpoint")
+    bench_eval_launches(hits, "hits")
+    by = {r["variant"]: r for r in hits}
+    hits_diff = max(abs(by[v][k] - by["exact"][k]) for v in ("pallas-natural+exact",
+                                                              "pallas-bitplane+exact")
+                    for k in ("recall@20", "ndcg@20"))
+    check(hits_diff <= METRIC_ATOL,
+          f"bench_eval hits: exact, natural and bit-plane rows differ by {hits_diff}")
+    for v in ("exact", "pallas-natural+exact", "pallas-bitplane+exact"):
+        check(by[v]["recall@20"] >= hits_floor,
+              f"bench_eval hits {v}: recall@20 {by[v]['recall@20']} < floor {hits_floor}")
+    target = bench_eval.build_parser().parse_args([]).recall_target
+    check(by["approx"]["recall@20"] >= (target - APPROX_SLACK) * by["exact"]["recall@20"],
+          f"bench_eval hits: approx's recall@20 {by['approx']['recall@20']} under "
+          f"({target} - {APPROX_SLACK}) x exact's {by['exact']['recall@20']}")
+    log(f"[tools] bench_eval on the hits run: {hits_s:.2f} s; exact, natural and bit-plane within "
+        f"{hits_diff:.1e}, recall@20 {by['exact']['recall@20']} (floor {hits_floor:.6f}), approx "
+        f"{by['approx']['recall@20']}")
+    launches = {k: launches[k] + hits_launches[k] for k in launches}
     shape = AMAZON_SHAPE
     k1 = time_k1_at(dev, shape["B"], shape["d"], shape["m"], "amazon-book-scale eval")
     k2 = time_k1_at(dev, shape["B"], shape["d"], shape["m"], "amazon-book-scale eval",
                     bitplane=True)
     log(f"[tools] bench_eval: {wall:.2f} s for both datasets")
-    return dict(rows=rows, launches=launches, run_s=wall, k1=k1, k2=k2)
+    return dict(rows=rows, hits_rows=hits, launches=launches, run_s=wall, hits_s=hits_s,
+                hits_max_diff=hits_diff, k1=k1, k2=k2)
 
 
 def tools_visualize(root: str) -> dict:
@@ -3515,12 +3757,12 @@ def tools_bench_seq_markov() -> dict:
     return dict(rows=rows, launches=launches, run_s=wall)
 
 
-def tools_phase(dev, out_dir: str, cli_model) -> dict:
+def tools_phase(dev, out_dir: str, cli_model, hits_floor: float) -> dict:
     """The ported tools, in the order of ROADMAP A8, on the card."""
     out, seconds = {}, {}
-    for name, fn, args in (("eval_checkpoint", tools_eval_checkpoint, (out_dir,)),
+    for name, fn, args in (("eval_checkpoint", tools_eval_checkpoint, (out_dir, hits_floor)),
                            ("bench_serving", tools_bench_serving, (dev, out_dir, cli_model)),
-                           ("bench_eval", tools_bench_eval, (dev, out_dir)),
+                           ("bench_eval", tools_bench_eval, (dev, out_dir, hits_floor)),
                            ("visualize", tools_visualize, (out_dir,)),
                            ("compute_ppr", tools_compute_ppr, (out_dir,)),
                            ("bench_spmm_modes", tools_bench_spmm_modes, (out_dir,)),
@@ -3623,6 +3865,35 @@ def padded_model(root: str, device, model_axis: int):
     model = build_model(cfg.model, graph, None, cli.layout_from_interactions(cfg.model, data),
                         device=device)
     return cfg, data, model
+
+
+def hits_on_mesh(device, root: str) -> dict:
+    """In a mesh rank: the hits run's checkpoint restored (`Trainer.
+    resume_weights`) into the model that `cli.main` builds for the hits
+    data on the mesh (the data padded to the model axis, as `padded_model`
+    pads it; this rank's table rows), then the sharded eval: K1 on the
+    rank's catalog shard, the model axis merging the top-k, counted."""
+    from gsrs_tpu_torch import cli
+    from gsrs_tpu_torch.data.adjacency import build_graph
+    from gsrs_tpu_torch.data.dataset import load_dataset, pad_nodes_to_multiple
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.train.trainer import Trainer
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(hits_argv(root) + [
+        "--data_axis", str(MESH_AXES[0]), "--model_axis", str(MESH_AXES[1]), "--dist_backend",
+        "gloo", "--resume"]))
+    data = pad_nodes_to_multiple(load_dataset(cfg.data.dataset_dir, name=HITS_DATASET),
+                                 MESH_AXES[1])
+    graph = build_graph(data, edge_pad_multiple=cfg.data.edge_pad_multiple)
+    model = build_model(cfg.model, graph, None, cli.layout_from_interactions(cfg.model, data),
+                        device=device)
+    trainer = Trainer(cfg, data, graph, model, device=device)
+    state = trainer.resume_weights(trainer.init_state())
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(state)
+    return dict(epoch=state.epoch, metrics=metrics, eval_s=time.perf_counter() - t0,
+                launches=read_counts())
 
 
 def mesh_steps(model, cfg, mesh, builder, batches, generator_seed: int = SEED):
@@ -3977,6 +4248,7 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
     users = np.arange(N_REQUESTS * BATCH) * 7 % retriever.n_users
     out["top"] = retriever.recommend(users, k=K)
     out["eval_serve_launches"] = read_counts()
+    out["hits"] = hits_on_mesh(device, root)
     # readings: the step's wall time, its collectives' share, each rank's kernels
     out.update(clocked_steps(fn, batches[0], device))
     x_items = collectives.all_gather_rows(model.item_emb.detach(), mesh).contiguous()
@@ -4157,11 +4429,13 @@ def check_blocks(ranks, refs) -> dict:
     return out
 
 
-def mesh_phase(dev, out_dir: str) -> dict:
+def mesh_phase(dev, out_dir: str, hits: dict) -> dict:
     """The (data, model) mesh on the card: builds nothing (the kernels are
     built), starts the four gloo ranks of `_mesh_rank` and checks them
-    against the single card on the same parameters and batches, then NCCL
-    (`_nccl_rank` on one card, or the CLI across cards)."""
+    against the single card on the same parameters and batches (and their
+    sharded eval of the hits run against ``hits``, the hits phase's
+    result), then NCCL (`_nccl_rank` on one card, or the CLI across
+    cards)."""
     import shutil
 
     from gsrs_tpu_torch import cli, seq_cli
@@ -4240,6 +4514,21 @@ def mesh_phase(dev, out_dir: str) -> dict:
     metric_err = max(abs(first["metrics"][k] - v) for k, v in metrics.items())
     check(metric_err <= lim["metric_atol"], f"mesh eval metrics differ by {metric_err}")
     check(all(out["metrics"] == first["metrics"] for out in ranks), "ranks' metrics differ")
+    # the hits run's sharded eval against one card's Evaluator, where a trained model hits
+    one_card = hits["card_vs_cpu"]["card"]
+    for r, out in enumerate(ranks):
+        check(out["hits"]["epoch"] == HITS_EPOCHS, f"rank {r} restored the hits run at epoch "
+              f"{out['hits']['epoch']}")
+        check(out["hits"]["launches"]["masked_scores"] > 0,
+              f"rank {r}: the hits eval launched {out['hits']['launches']}")
+        check(out["hits"]["metrics"] == first["hits"]["metrics"], "ranks' hits metrics differ")
+    hits_err = max(abs(first["hits"]["metrics"][k] - v) for k, v in one_card.items())
+    check(hits_err <= lim["metric_atol"], f"the mesh's hits eval {first['hits']['metrics']} "
+          f"differs from one card's {one_card} by {hits_err}")
+    check(first["hits"]["metrics"][f"recall@{K}"] >= hits["floor"],
+          f"the mesh's hits eval {first['hits']['metrics']} is under the floor {hits['floor']}")
+    log(f"[mesh] the hits run's sharded eval on every rank: {first['hits']['metrics']} "
+        f"({first['hits']['eval_s']:.2f} s); one card {one_card}; max diff {hits_err:.2e}")
     retriever = retriever_from_model(model, data, batch_size=BATCH, device=dev)
     users = np.arange(N_REQUESTS * BATCH) * 7 % retriever.n_users
     items, scores = retriever.recommend(users, k=K)
@@ -4308,6 +4597,7 @@ def mesh_phase(dev, out_dir: str) -> dict:
                           for k in ("cli", "resume", "seq"))
                 + sum(out[k][name] for out in ranks
                       for k in ("steps_launches", "eval_serve_launches"))
+                + sum(out["hits"]["launches"][name] for out in ranks)
                 + sum(b["launches"][name] for out in ranks for b in out["blocks"].values())
                 for name in ("ell_gather_reduce", "masked_scores", "fused_adam")}
     per_rank = [dict(k4_user_side=o["k4_user_side"], k1_shard=o["k1_shard"],
@@ -4318,7 +4608,8 @@ def mesh_phase(dev, out_dir: str) -> dict:
         spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
         cli=first["cli"], eval_s=first["eval_s"], readings=readings, control_loss_rel=control_rel,
         repeat_max_diff=repeat, resume_max_diff=resume,
-        metric_err=metric_err, seq_loss_rel=seq_loss_rel, seq_metric_err=seq_metric_err,
+        metric_err=metric_err, hits_metrics=first["hits"]["metrics"], hits_metric_err=hits_err,
+        seq_loss_rel=seq_loss_rel, seq_metric_err=seq_metric_err,
         seq_wall_s=first["seq"]["wall_s"], step_ms=first["step_ms"],
         step_ms_clocked=first["step_ms_clocked"], collective_ms=first["collective_ms"],
         collective_calls=first["collective_calls"],
@@ -4465,8 +4756,9 @@ def main() -> int:
     cli = phase("cli", cli_phase, dev, data, out_dir)
     zoo = phase("zoo", zoo_phase, dev, data, train["ell"], out_dir)
     seq = phase("seq", seq_phase, dev, out_dir)
-    tools = phase("tools", tools_phase, dev, out_dir, cli["model"])
-    mesh = phase("mesh", mesh_phase, dev, out_dir)
+    hits = phase("hits", hits_phase, dev, out_dir)
+    tools = phase("tools", tools_phase, dev, out_dir, cli["model"], hits["floor"])
+    mesh = phase("mesh", mesh_phase, dev, out_dir, hits)
     stress = phase("stress", stress_phase, dev)
     times = phase("time_training", time_training, dev, train)
 
@@ -4536,9 +4828,10 @@ def main() -> int:
                 run: {side: dict(whole=b["whole_ms"][side], ranks=[t[side] for t in b["rank_ms"]])
                       for side in b["whole_ms"] if side.endswith("K4")}
                 for run, b in mesh["blocks"].items() if "whole_ms" in b}
-        # the ported tools on the card
+        # the hits run and its checks, and the ported tools, on the card
+        k["launches_hits"] = hits["launches"].get(k["name"], 0)
         k["launches_tools"] = tools["launches"].get(k["name"], 0)
-        k["launches"] += k["launches_tools"]
+        k["launches"] += k["launches_hits"] + k["launches_tools"]
         if k["name"] == "masked_scores":
             k["at_amazon_scale"] = tools["bench_eval"]["k1"]
         if k["name"] == "masked_scores_bitplane":
@@ -4567,6 +4860,7 @@ def main() -> int:
         "cli": {k: v for k, v in cli.items() if k != "model"},
         "zoo": zoo,
         "seq": seq,
+        "hits": hits,
         "tools": tools,
         "mesh": mesh,
         "stress": stress,
