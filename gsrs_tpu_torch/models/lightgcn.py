@@ -42,6 +42,7 @@ from gsrs_tpu_torch.ops.spmm import edge_keep_mask
 from gsrs_tpu_torch.ops.tiled import (
     TiledGraph, tiled_from_graph, tiled_masks, tiled_propagate_layer,
 )
+from gsrs_tpu_torch.utils.timer import span
 
 Layout = Union[EllGraph, TiledGraph, HybridGraph]
 Layer = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -201,15 +202,16 @@ class LightGCN(nn.Module):
         ``cfg.dropout`` and a ``dropout_generator`` (on the model's
         device), one edge keep mask is drawn per call and used by every
         layer (`_layer`)."""
-        u, i = self._tables()
-        layer = self._layer(dropout_generator, u.dtype)
-        acc_u, acc_i = u, i
-        cur_u, cur_i = u, i
-        for _ in range(self.cfg.num_layers):
-            cur_u, cur_i = layer(cur_u, cur_i)
-            acc_u = acc_u + cur_u
-            acc_i = acc_i + cur_i
-        return self._readout(acc_u, acc_i)
+        with span("propagate"):
+            u, i = self._tables()
+            layer = self._layer(dropout_generator, u.dtype)
+            acc_u, acc_i = u, i
+            cur_u, cur_i = u, i
+            for _ in range(self.cfg.num_layers):
+                cur_u, cur_i = layer(cur_u, cur_i)
+                acc_u = acc_u + cur_u
+                acc_i = acc_i + cur_i
+            return self._readout(acc_u, acc_i)
 
     def _tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The embedding tables in the compute dtype."""

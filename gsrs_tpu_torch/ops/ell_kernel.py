@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from gsrs_tpu_torch.utils.timer import span
+
 LAUNCHES = {"ell_gather_reduce": 0}
 MAX_BUCKETS = 64  # kMaxBuckets of the CUDA source: buckets per launch
 SPLIT_SLOTS = 256  # S: the most real slots one warp sums
@@ -156,7 +158,7 @@ class BucketTable:
             raise ValueError(f"buckets lie on different devices: {sorted(map(str, devices))}")
         self.device = devices.pop() if devices else torch.device("cpu")
         self.max_col = self.max_eidx = -1
-        self.n_rows = 0
+        self.n_rows = self.nnz = 0  # nnz: the slots of weight ≠ 0
         for cols, w, eidx in self.buckets:
             if cols.dim() != 2 or w.shape != cols.shape or eidx.shape != cols.shape:
                 raise ValueError("a bucket's cols, w and eidx must share one (n_b, W) shape")
@@ -165,6 +167,7 @@ class BucketTable:
             if cols.numel():
                 self.max_col = max(self.max_col, int(cols.max()))
                 self.max_eidx = max(self.max_eidx, int(eidx.max()))
+                self.nnz += int(torch.count_nonzero(w))
             self.n_rows += cols.shape[0]
         if self.n_rows >= 2**31 or max((c.numel() for c, _, _ in self.buckets), default=0) >= 2**31:
             raise ValueError("the kernel indexes rows and slots of a bucket with int32")
@@ -269,5 +272,6 @@ def gather_reduce(
         return out
     if table.device.type != "cuda":
         raise ValueError(f"gather_reduce runs on CUDA or the CPU, not {table.device}")
-    _launch(table, x, mask, out)
+    with span("k4", shape=(table.nnz, x.shape[0], table.n_rows, x.shape[1], x.element_size())):
+        _launch(table, x, mask, out)
     return out

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from gsrs_tpu_torch.ops.bitset import bitset_row_mask, bitset_words
+from gsrs_tpu_torch.utils.timer import span
 
 NEG_INF = -1e9
 LAUNCHES = {"masked_scores": 0, "masked_scores_bitplane": 0}
@@ -150,4 +151,6 @@ def masked_scores(
     if device.type != "cuda":
         raise ValueError(f"masked_scores runs on CUDA or the CPU, not {device}")
     _check_shapes(user_emb, item_emb, bitset_rows, bitplane, block_m)
-    return _launch(user_emb, item_emb, bitset_rows, bitplane, block_m)
+    with span("k1", shape=(user_emb.shape[0], item_emb.shape[0], user_emb.shape[1],
+                           bitset_rows.shape[1])):
+        return _launch(user_emb, item_emb, bitset_rows, bitplane, block_m)

@@ -32,6 +32,7 @@ import torch
 
 from gsrs_tpu_torch.ops.bitset import bitset_row_mask
 from gsrs_tpu_torch.ops.scoring import NEG_INF, masked_scores
+from gsrs_tpu_torch.utils.timer import span
 
 __all__ = ["NEG_INF", "score_users", "mask_train_positives", "topk_scores", "masked_topk",
            "approx_bins", "topk_approx", "topk_threshold", "stable_topk", "exact_topk",
@@ -90,7 +91,8 @@ def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     vals, pos = stable_topk(vals.gather(1, pos), k)
     idx = idx.gather(1, pos)
     if tied is not None:
-        rows = tied.nonzero().squeeze(1)
+        with span("sync.topk.ties"):
+            rows = tied.nonzero().squeeze(1)
         if rows.numel():
             vals[rows], idx[rows] = stable_topk(scores[rows], k)
     return vals, idx
@@ -236,7 +238,10 @@ def topk_threshold(
         t = torch.where(ok, t, 0.5 * (lo + hi))
     c = count_at(t)
     ok = (c >= need) & (c <= cap)
-    if bool(ok.all()):
+    all_ok = ok.all()
+    with span("sync.topk.threshold"):
+        all_ok = bool(all_ok)
+    if all_ok:
         return _threshold_candidates(scores, t, c, k, cap)
     return stable_topk(scores, k)
 

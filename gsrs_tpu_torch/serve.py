@@ -50,6 +50,7 @@ from gsrs_tpu_torch.ops.scoring import (
     resolve_bitplane_scoring,
 )
 from gsrs_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_scores
+from gsrs_tpu_torch.utils.timer import span
 
 BITPLANE_BLOCK_M = 4096
 
@@ -226,7 +227,13 @@ class Retriever:
         at a time. A user with fewer than k unseen items gets item id -1
         and the −1e9 mask score in the slots left over. On a mesh every
         rank calls it; rank 0's ``user_ids`` are the request (broadcast),
-        and every rank returns the answer."""
+        and every rank returns the answer. Under a profile it records the
+        spans ``serve.request``, and per chunk ``sync.serve.h2d`` (the ids'
+        copy), ``serve.score`` and ``sync.serve.fetch`` (one a copy back)."""
+        with span("serve.request"):
+            return self._recommend(user_ids, k)
+
+    def _recommend(self, user_ids: Sequence[int], k: int) -> Tuple[np.ndarray, np.ndarray]:
         if self.mesh is not None:
             from gsrs_tpu_torch.parallel.collectives import broadcast_object
 
@@ -240,12 +247,17 @@ class Retriever:
         B = self.batch_size
         out_items = np.empty((ids.size, k), np.int32)
         out_scores = np.empty((ids.size, k), np.float32)
+        score = self._mesh_topk if self.mesh is not None else self._score_topk
         for s in range(0, ids.size, B):
-            chunk = torch.from_numpy(ids[s : s + B]).to(self.device)
-            score = self._mesh_topk if self.mesh is not None else self._score_topk
-            scores, items = score(chunk, k)
-            sc = scores.cpu().numpy()
-            it = items.cpu().numpy().astype(np.int32)
+            with span("sync.serve.h2d"):  # from pageable memory: the host waits
+                chunk = torch.from_numpy(ids[s : s + B]).to(self.device)
+            with span("serve.score"):
+                scores, items = score(chunk, k)
+            with span("sync.serve.fetch"):
+                sc = scores.cpu()
+            with span("sync.serve.fetch"):
+                it = items.cpu()
+            sc, it = sc.numpy(), it.numpy().astype(np.int32)
             # masked slots carry the −1e9 mask value, far below any real score
             out_items[s : s + B] = np.where(sc <= NEG_INF / 2, np.int32(-1), it)
             out_scores[s : s + B] = sc

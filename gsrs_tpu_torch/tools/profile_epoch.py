@@ -14,7 +14,9 @@ kernels (``ell_gather_reduce`` for K4, ``masked_scores`` for K1). Then
 `Timer.summary()` of this run (the tape is zeroed first), with the JAX
 tool's phase names: ``load_data``,
 ``init``, ``warmup_epoch_incl_compile``, ``warmup_eval_incl_compile``,
-``epoch`` and ``eval``. Nothing is compiled here as XLA compiles: the
+``epoch`` and ``eval``; with ``--trace_dir``, also the spans' own time a
+step and an eval, from the profiled epochs' span tape
+(`utils.timer.spans`). Nothing is compiled here as XLA compiles: the
 "compile" of the warm-up phases is the first use's work, the kernels'
 build (`gsrs_tpu_torch.kernels`, cached under ``build/kernels``) and
 loading included.
@@ -55,7 +57,7 @@ def main(argv: Optional[list] = None) -> str:
     from gsrs_tpu_torch.models.registry import build_model
     from gsrs_tpu_torch.ops.ell import ell_from_interactions
     from gsrs_tpu_torch.train.trainer import Trainer
-    from gsrs_tpu_torch.utils.timer import Timer, profile_trace
+    from gsrs_tpu_torch.utils.timer import Timer, profile_trace, spans
 
     device = resolve_device(args.device)
     ddir = os.path.join(args.data_root or os.path.join(_repo_root(), "data"), args.dataset)
@@ -91,8 +93,26 @@ def main(argv: Optional[list] = None) -> str:
     summary = Timer.summary()
     print(summary)
     if args.trace_dir:
+        print(span_summary(spans()))
         print(f"trace written to {args.trace_dir}")
     return summary
+
+
+def span_summary(tape) -> str:
+    """The profiled spans' own milliseconds a step (under ``train.call``)
+    and an eval (under ``eval.run``), by span, the largest first."""
+    from gsrs_tpu_torch.utils.timer import own_ns
+
+    lines = []
+    for label, call, unit in (("a step", "train.call", "train.step"),
+                              ("an eval", "eval.run", "eval.run")):
+        n = sum(s.name == unit for s in tape)
+        if not n:
+            continue
+        parts = sorted(own_ns(tape, call).items(), key=lambda kv: -kv[1])
+        lines.append(f"spans, own ms {label} ({n}): "
+                     + " | ".join(f"{name} {ns / n / 1e6:.3f}" for name, ns in parts))
+    return "\n".join(lines)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,12 @@ the top ``max(topks)`` by ``topk_method`` (`gsrs_tpu_torch.ops.topk`:
 exact, approx or threshold; in the bit-plane branch on the permuted
 columns, then mapped back), and sum recall, precision and NDCG on the
 device. The padded tail carries user weight 0. The host reads the sums
-once, at the end of `run` (the threshold method also reads one flag per
-batch).
+once, at the end of `run`, and the top-k reads one mask a batch (exact:
+which rows tie at the k-th value; threshold: whether every row landed).
+Spans (`gsrs_tpu_torch.utils.timer.span`, recorded under a profile):
+``eval.run``, ``eval.propagate``, and per batch ``eval.batch`` holding
+``eval.score`` (K1), ``eval.topk`` and ``eval.metrics``; ``sync.eval.read``
+around the read of the sums.
 
 On a mesh (``mesh``, as the Trainer passes it) the propagation runs on
 the gathered tables and the rank's ELL shard; each rank scores its data
@@ -38,6 +42,7 @@ from gsrs_tpu_torch.ops.scoring import (
     resolve_bitplane_scoring,
 )
 from gsrs_tpu_torch.ops.topk import topk_scores
+from gsrs_tpu_torch.utils.timer import span
 
 BITPLANE_BLOCK_M = 4096
 
@@ -126,17 +131,21 @@ class Evaluator:
                 self._ragged = int(high.view(np.int32)[0])
 
     def _topk(self, scores: torch.Tensor) -> torch.Tensor:
-        return topk_scores(scores, self.max_k, self.cfg.topk_method,
-                           self.cfg.topk_recall_target)[1]
+        with span("eval.topk"):
+            return topk_scores(scores, self.max_k, self.cfg.topk_method,
+                               self.cfg.topk_recall_target)[1]
 
     def _top_items(self, u_emb: torch.Tensor, items: torch.Tensor, rows: torch.Tensor):
         """→ (top item ids (B, max_k), valid (B, max_k) float or None)."""
         if not self._bitplane:
-            return self._topk(masked_scores(u_emb, items, rows)), None
-        if self._ragged is not None:
-            rows[:, -1] |= self._ragged
-        rows = torch.cat([rows, self._pad_words], dim=1)
-        scores = masked_scores(u_emb, items, rows, bitplane=True, block_m=BITPLANE_BLOCK_M)
+            with span("eval.score"):
+                scores = masked_scores(u_emb, items, rows)
+            return self._topk(scores), None
+        with span("eval.score"):
+            if self._ragged is not None:
+                rows[:, -1] |= self._ragged
+            rows = torch.cat([rows, self._pad_words], dim=1)
+            scores = masked_scores(u_emb, items, rows, bitplane=True, block_m=BITPLANE_BLOCK_M)
         top = self._bp_perm[self._topk(scores)]
         # phantom columns surface only for users whose whole row ties at
         # the mask value; their labels are zeroed and the ids clamped
@@ -150,13 +159,17 @@ class Evaluator:
         if self.mesh is not None:
             yield from self._mesh_batches()
             return
-        all_users, items, _ = self.model.final_embeddings()
-        if self._bitplane:
-            items = F.pad(items, (0, 0, 0, self._m_pad - self._m))[self._bp_perm].contiguous()
+        with span("eval.propagate"):
+            all_users, items, _ = self.model.final_embeddings()
+            if self._bitplane:
+                items = F.pad(items, (0, 0, 0, self._m_pad - self._m))[self._bp_perm].contiguous()
         for users, weights, gt in zip(self._users, self._weights, self._gt):
-            u_emb = all_users.index_select(0, users)
-            rows = self.train_bitset.index_select(0, users)
-            yield (users, weights, gt) + self._top_items(u_emb, items, rows)
+            # open until the consumer asks for the next batch: its metrics
+            # are the batch's too
+            with span("eval.batch"):
+                u_emb = all_users.index_select(0, users)
+                rows = self.train_bitset.index_select(0, users)
+                yield (users, weights, gt) + self._top_items(u_emb, items, rows)
 
     def _mesh_batches(self):
         from gsrs_tpu_torch.parallel.dist_train import sharded_topk
@@ -189,18 +202,22 @@ class Evaluator:
         """One propagation of the model's current parameters + every
         scoring batch → mean metrics over the real test users."""
         totals: Dict[str, torch.Tensor] = {}
-        for users, weights, gt, top, valid in self._batches():
-            labels = topk_labels(top, self.test_bitset, users)
-            if valid is not None:
-                labels = labels * valid
-            for k, v in batch_metrics(labels, gt, weights, self.cfg.topks).items():
-                totals[k] = totals[k] + v if k in totals else v
-        names = list(totals)
-        values = torch.stack([totals[k] for k in names])
-        if self.mesh is not None:
-            from gsrs_tpu_torch.parallel.collectives import all_reduce_
+        with span("eval.run"):
+            for users, weights, gt, top, valid in self._batches():
+                with span("eval.metrics"):
+                    labels = topk_labels(top, self.test_bitset, users)
+                    if valid is not None:
+                        labels = labels * valid
+                    for k, v in batch_metrics(labels, gt, weights, self.cfg.topks).items():
+                        totals[k] = totals[k] + v if k in totals else v
+            names = list(totals)
+            values = torch.stack([totals[k] for k in names])
+            if self.mesh is not None:
+                from gsrs_tpu_torch.parallel.collectives import all_reduce_
 
-            all_reduce_(values, self.mesh, "data")
-        values = values.cpu().tolist()
+                all_reduce_(values, self.mesh, "data")
+            with span("sync.eval.read"):
+                values = values.cpu()
+        values = values.tolist()
         denom = max(self.n_test_users, 1)
         return {k: v / denom for k, v in zip(names, values)}

@@ -32,6 +32,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gsrs_tpu_torch.utils.timer import span
+
 LAUNCHES = {"fused_adam": 0}
 MAX_LEAVES = 64  # kMaxLeaves of the CUDA source: leaves a launch
 CHUNK = 2048  # kChunk of the CUDA source: elements a block takes at a time
@@ -140,6 +142,7 @@ class LeafPlan:
         self.moments = [(m, v) for _, m, v in leaves]  # held: their pointers are in the tables
         self.shapes = [tuple(p.shape) for p, _, _ in leaves]
         self.dtypes = [p.dtype for p, _, _ in leaves]
+        self.sizes = tuple((p.numel(), p.element_size()) for p, _, _ in leaves)  # a span's shape
         self.tables: List[Tuple[_Table, int]] = []  # (table, its leaves' count)
         self._entries: List[_Leaf] = []  # every leaf's table entry, in leaf order
         self._flags: List[int] = []  # each leaf's flags before its gradient is known
@@ -196,13 +199,14 @@ class LeafPlan:
         leaves' card, ``consts`` from `_consts`; raises off the card."""
         if self.device is None or self.device.type != "cuda":
             raise ValueError(f"the CUDA kernel runs on CUDA tensors, not {self.device}")
-        self.fill(grads)
-        fn = _kernel_fn()
-        if torch.cuda.current_device() == self.device.index:
-            self._launch(fn, lr, c1, c2, consts)
-        else:
-            with torch.cuda.device(self.device):
+        with span("k3", shape=self.sizes):
+            self.fill(grads)
+            fn = _kernel_fn()
+            if torch.cuda.current_device() == self.device.index:
                 self._launch(fn, lr, c1, c2, consts)
+            else:
+                with torch.cuda.device(self.device):
+                    self._launch(fn, lr, c1, c2, consts)
 
     def _launch(self, fn, lr, c1, c2, consts) -> None:
         stream = torch.cuda.current_stream().cuda_stream

@@ -6,7 +6,11 @@ step per batch: propagation forward and backward through the ELL
 gather-reduce kernel, the BPR loss plus ``decay · reg``, and Adam
 (`gsrs_tpu_torch.train.optim`). The per-step losses stay on the device;
 the host reads their mean once per epoch. Parameters live in the model
-and are updated in place.
+and are updated in place. Spans (`gsrs_tpu_torch.utils.timer.span`,
+recorded under a profile): ``train.call`` around an epoch call,
+``train.sample`` a chunk, ``train.step`` holding ``train.forward``,
+``train.backward`` and ``train.optimizer``, and ``sync.train.loss``
+around the read of the mean.
 
 `fit` runs the JAX trainer's loop: an eval before every
 ``eval_every``-th epoch and a final one, best-NDCG checkpoints and early
@@ -60,6 +64,7 @@ from gsrs_tpu_torch.train.logging import (
 from gsrs_tpu_torch.train.optim import (
     load_optimizer_state, make_optimizer, optimizer_state_dict,
 )
+from gsrs_tpu_torch.utils.timer import span
 
 _SAMPLE, _DROPOUT = 0, 1  # the random streams of an epoch chunk
 
@@ -171,16 +176,21 @@ class Trainer:
         opt_state = state.opt_state
         losses = []
         for users, pos, neg in zip(*batches):
-            if self.mesh is not None:
-                opt_state, share = mesh_step(self.model, self.optimizer, self.mesh, state.params,
-                                             opt_state, users, pos, neg, decay, gen)
-                losses.append(share)
-                continue
-            loss, aux = self.model.bpr_loss(users, pos, neg, gen)
-            total = loss + decay * aux["reg"]
-            total.backward()
-            opt_state = self.optimizer.step(state.params, opt_state)
-            losses.append(total.detach())
+            with span("train.step"):
+                if self.mesh is not None:
+                    opt_state, share = mesh_step(self.model, self.optimizer, self.mesh,
+                                                 state.params, opt_state, users, pos, neg, decay,
+                                                 gen)
+                    losses.append(share)
+                    continue
+                with span("train.forward"):
+                    loss, aux = self.model.bpr_loss(users, pos, neg, gen)
+                    total = loss + decay * aux["reg"]
+                with span("train.backward"):
+                    total.backward()
+                with span("train.optimizer"):
+                    opt_state = self.optimizer.step(state.params, opt_state)
+                losses.append(total.detach())
         losses = torch.stack(losses)
         if self.mesh is not None:
             all_reduce_(losses, self.mesh)  # the ranks' shares sum to each step's loss
@@ -201,18 +211,22 @@ class Trainer:
             raise ValueError(f"steps_per_scan must be >= -1, got {t_cfg.steps_per_scan}")
         by_edge = getattr(self.model, "samples_pairs_by_edge", False)
         losses = []
-        for chunk_i, c0 in enumerate(range(0, num_batches, spc)):
-            n = min(spc, num_batches - c0)
-            g = torch.Generator(self.device).manual_seed(
-                stream_seed(t_cfg.seed, state.epoch, chunk_i, _SAMPLE))
-            users_b, pos_b, neg_b = sample_epoch(g, self.sampler_state, n * B, B,
-                                                 by_edge=by_edge,
-                                                 neg_candidates=t_cfg.neg_candidates)
-            drop = torch.Generator(self.device).manual_seed(
-                stream_seed(t_cfg.seed, state.epoch, chunk_i, _DROPOUT))
-            state, chunk_losses = self.run_steps(state, users_b, pos_b, neg_b, drop)
-            losses.append(chunk_losses)
-        mean = float(torch.cat(losses).mean())
+        with span("train.call"):
+            for chunk_i, c0 in enumerate(range(0, num_batches, spc)):
+                n = min(spc, num_batches - c0)
+                with span("train.sample"):
+                    g = torch.Generator(self.device).manual_seed(
+                        stream_seed(t_cfg.seed, state.epoch, chunk_i, _SAMPLE))
+                    users_b, pos_b, neg_b = sample_epoch(g, self.sampler_state, n * B, B,
+                                                         by_edge=by_edge,
+                                                         neg_candidates=t_cfg.neg_candidates)
+                drop = torch.Generator(self.device).manual_seed(
+                    stream_seed(t_cfg.seed, state.epoch, chunk_i, _DROPOUT))
+                state, chunk_losses = self.run_steps(state, users_b, pos_b, neg_b, drop)
+                losses.append(chunk_losses)
+            mean = torch.cat(losses).mean()
+            with span("sync.train.loss"):
+                mean = float(mean)
         return dataclasses.replace(state, epoch=state.epoch + 1), mean
 
     # ------------------------------------------------------------------ eval

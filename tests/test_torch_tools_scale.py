@@ -212,6 +212,9 @@ def test_profile_epoch_phases_match_jax(tmp_path, monkeypatch, jax, evaluate):
         {"warmup_eval_incl_compile", "eval"} if evaluate else set())
     assert want["epoch"] == "2"
     assert summary in text and f"trace written to {trace}" in text
+    # the profiled epochs' spans, own time a step and an eval
+    assert "spans, own ms a step (" in text and "train.backward" in text
+    assert ("spans, own ms an eval (2): " in text) == evaluate
     traces = [f for f in os.listdir(trace) if f.endswith(".json")]
     assert len(traces) == 1
     with open(trace / traces[0]) as f:
