@@ -32,7 +32,13 @@
    path bitwise the CPU's result on those rows (threshold's whole-batch
    fallback) and on rows whose 20th and 21st scores are +0.0 and −0.0
    (its candidate path), threshold and the merge bitwise exact's; their
-   times beside a bare `torch.topk`'s on tie-free scores.
+   times beside a bare `torch.topk`'s on tie-free scores. Then the exact
+   top-k kernel (``csrc/exact_topk.cu``, `time_exact_topk`) at the
+   amazon-book eval's and the Gowalla request's shapes: launch counts,
+   bitwise `stable_topk`'s and its plain version's, device time beside its
+   byte bound, its plain version, the plain path before it and
+   `torch.topk`. Every later phase that ranks by exact top-k checks that
+   the kernel ran once a top-k call and the plain path never.
 4. Serving phase, LightGCN at Gowalla's shape (a seeded power-law
    stand-in: 29,858 users × 40,981 items, average degree 27), 3 layers at
    dim 64, fp32, seeded weights: build the graph, propagate, build the
@@ -366,18 +372,20 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 L2_BYTES = 50 * 2**20  # the H100's L2: a timing meant to read HBM cycles through more
-KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam")
+KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk")
 SOURCES = {
     "masked_scores": "gsrs_tpu_torch/csrc/masked_scores.cu",
     "masked_scores_bitplane": "gsrs_tpu_torch/csrc/masked_scores.cu",
     "ell_gather_reduce": "gsrs_tpu_torch/csrc/ell_gather_reduce.cu",
     "fused_adam": "gsrs_tpu_torch/csrc/fused_adam.cu",
+    "exact_topk": "gsrs_tpu_torch/csrc/exact_topk.cu",
 }
 REPLACES = {
     "masked_scores": "gsrs_tpu/ops/pallas_kernels.py:65",
     "masked_scores_bitplane": "gsrs_tpu/ops/pallas_kernels.py:190",
     "fused_adam": "gsrs_tpu/train/fused_adam.py:76",
     "ell_gather_reduce": "tools/probe_pallas_gather.py:28",
+    "exact_topk": "no Pallas kernel: lax.top_k in gsrs_tpu/ops/topk.py:topk_scores (exact)",
 }
 
 
@@ -584,10 +592,10 @@ def bound(B: int, d: int, m: int, W: int):
 
 def counters():
     """Every kernel wrapper's launch-count dict."""
-    from gsrs_tpu_torch.ops import ell_kernel, scoring
+    from gsrs_tpu_torch.ops import ell_kernel, scoring, topk
     from gsrs_tpu_torch.train import fused_adam
 
-    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES)
+    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES, topk.LAUNCHES)
 
 
 def zero_counts() -> None:
@@ -598,6 +606,15 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: n for c in counters() for name, n in c.items()}
+
+
+def check_exact_topk(launches: dict, calls: int, what: str) -> None:
+    """``what`` ranked by the exact top-k kernel, once a top-k call, and
+    never by the plain path (every caller hands it K1's contiguous fp32
+    scores)."""
+    check(launches["exact_topk"] == calls and launches["exact_topk_plain"] == 0,
+          f"{what}: exact_topk launched {launches['exact_topk']} times for {calls} top-k calls "
+          f"(the plain path {launches['exact_topk_plain']} times)")
 
 
 def epoch_steps(trainer) -> int:
@@ -809,6 +826,82 @@ def exact_tie_check(dev: torch.device) -> dict:
     return out
 
 
+EXACT_TOPK_SHAPES = {"amazon-book-eval": (2048, 91599, 20), "gowalla-serve": (1, 40981, 20)}
+
+
+def exact_topk_inputs(B: int, m: int, k: int, g: torch.Generator, dev) -> torch.Tensor:
+    """(B, m) seeded normals with K1's −1e9 at a tenth of the columns, a row
+    rounded to 0.1 (ties at the k-th value), a row of ±0.0 and one all
+    −1e9 where B allows."""
+    from gsrs_tpu_torch.ops.scoring import NEG_INF
+
+    x = torch.randn(B, m, device=dev, generator=g)
+    x[torch.rand(B, m, device=dev, generator=g) < 0.1] = NEG_INF
+    if B >= 4:
+        x[1] = torch.round(x[1] * 10) / 10
+        x[2] = torch.where(torch.rand(m, device=dev, generator=g) < 0.5, -0.0, 0.0)
+        x[3] = NEG_INF
+    return x
+
+
+def time_exact_topk(dev) -> dict:
+    """The exact top-k kernel (``csrc/exact_topk.cu`` through
+    `ops/topk.py::exact_topk`) at the two cells' shapes, one launch a call,
+    bitwise `stable_topk`'s and its plain version's (`exact_topk_reference`)
+    first, then device ms a call beside its byte bound (the scores read
+    once), the plain version, the plain path the port took before the
+    kernel (`torch.topk` of k + 1, the sorts and the tie read) and
+    `torch.topk` of k (a yardstick the port never calls). At B = 1 the
+    scores, 164 KB, stay in L2 between calls, as they do after K1 in a
+    request."""
+    from gsrs_tpu_torch.ops import topk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    out = {}
+    for cell, (B, m, k) in EXACT_TOPK_SHAPES.items():
+        x = exact_topk_inputs(B, m, k, g, dev)
+        before = dict(topk.LAUNCHES)
+        got = topk.exact_topk(x, k)
+        check_exact_topk({name: n - before[name] for name, n in topk.LAUNCHES.items()}, 1,
+                         f"exact_topk at {cell}'s shape")
+        for name, want in (("stable_topk", topk.stable_topk(x, k)),
+                           ("its plain version", topk.exact_topk_reference(x, k))):
+            check(bitwise_equal(got[0], want[0]) and bitwise_equal(got[1], want[1]),
+                  f"exact_topk at {cell}'s shape differs from {name}")
+        b_ms, b_by = roofline(4 * B * m, 0)
+        t = {name: kernel_ms(fn, reps, f"exact_topk {cell} {name}") for name, fn, reps in (
+            ("ms", lambda: topk.exact_topk(x, k), 50),
+            ("plain_ms", lambda: topk.exact_topk_reference(x, k), 10),
+            ("before_ms", lambda: topk._exact_topk_plain(x, k), 20),
+            ("library_ms", lambda: torch.topk(x, k, dim=1), 50))}
+        row = dict(shape=[B, m, k], bound_ms=b_ms, bound_by=b_by, roofline=b_ms / t["ms"]["ms"],
+                   **t)
+        log(f"[time] exact_topk at {cell}'s shape B={B} m={m} k={k}: "
+            f"{t['ms']['ms'] * 1e3:.1f} us ({100 * row['roofline']:.1f}% of its bound "
+            f"{b_ms * 1e3:.1f} us, {b_by}), plain {t['plain_ms']['ms'] * 1e3:.1f} us, the "
+            f"path before {t['before_ms']['ms'] * 1e3:.1f} us, torch.topk "
+            f"{t['library_ms']['ms'] * 1e3:.1f} us; bitwise stable_topk's and the plain "
+            "version's")
+        out[cell] = row
+    return out
+
+
+def exact_topk_entry(timed: dict, launches: dict) -> dict:
+    """The exact top-k kernel's row of the ``{"kernels": ...}`` line: its
+    times at the amazon-book eval batch (`time_exact_topk`), the Gowalla
+    request's beside them, and its launches on the main paths, by phase."""
+    row = timed["amazon-book-eval"]
+    return dict(name="exact_topk", route="cuda", source=SOURCES["exact_topk"],
+                replaces=REPLACES["exact_topk"], launches=sum(launches.values()),
+                max_abs_err=0.0, ms=row["ms"]["ms"], plain_ms=row["plain_ms"]["ms"],
+                before_ms=row["before_ms"]["ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"]["ms"],
+                events_ms={k: row[k]["events_ms"]
+                           for k in ("ms", "plain_ms", "before_ms", "library_ms")},
+                shape=row["shape"], request=timed["gowalla-serve"],
+                launches_by_phase=launches)
+
+
 # ------------------------------------------------------------ serving phase
 
 
@@ -868,6 +961,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
     for name in scoring.LAUNCHES:
         check(launches[name] >= N_REQUESTS, f"{name} launched {launches[name]} times on the "
               "serving path")
+    check_exact_topk(launches, 2 * N_REQUESTS, "the serving path, natural and bit-plane")
     check(launches["ell_gather_reduce"] >= 2 * model.cfg.num_layers,
           "the propagation did not run through ell_gather_reduce")
 
@@ -1391,6 +1485,7 @@ def eval_phase(dev, train: dict) -> dict:
     launches = read_counts()
     check(launches["masked_scores"] >= 1, "the eval did not score through masked_scores")
     check(launches["ell_gather_reduce"] >= 2 * 3, "the eval did not propagate through K4")
+    check_exact_topk(launches, tr.evaluator._users.shape[0], "the eval")
     t0 = time.perf_counter()
     tr.evaluate(state)
     eval2_s = time.perf_counter() - t0
@@ -2107,6 +2202,7 @@ def topk_method_checks(trainer) -> dict:
     bitwise exact's (both rank in ``lax.top_k``'s order); approx's recall
     of exact's top-20, averaged over the test users, at least the target
     less APPROX_SLACK. Each method's eval seconds, warm."""
+    from gsrs_tpu_torch.kernels import launch_counts, launches_since
     from gsrs_tpu_torch.ops.scoring import masked_scores
     from gsrs_tpu_torch.ops.topk import topk_scores
     from gsrs_tpu_torch.train.evaluator import Evaluator
@@ -2116,11 +2212,14 @@ def topk_method_checks(trainer) -> dict:
     for method in ("exact", "threshold", "approx"):
         ev = Evaluator(data, model, dataclasses.replace(ecfg, topk_method=method),
                        train_bitset=trainer.sampler_state.train_bitset, device=model.user_emb.device)
+        before = launch_counts()
         ev.run()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics[method] = ev.run()
         out["eval_s"][method] = time.perf_counter() - t0
+        check_exact_topk(launches_since(before), 2 * ev._users.shape[0] if method == "exact" else 0,
+                         f"two evals by {method} top-k")
         tops[method] = ev.top_items()
     diff = max(abs(metrics["threshold"][k] - metrics["exact"][k]) for k in metrics["exact"])
     check(diff <= METRIC_ATOL, f"threshold vs exact metrics differ by {diff}")
@@ -2208,6 +2307,7 @@ def cli_phase(dev, data, out_dir: str) -> dict:
     check(launches["masked_scores"] == evals * n_batches,
           f"masked_scores launched {launches['masked_scores']} times for {evals} evals of "
           f"{n_batches} batches")
+    check_exact_topk(launches, 0, "the CLI run, approx top-k")
     layers = model.cfg.num_layers
     for side in ("user", "item"):  # each layer's forward and backward apply
         check(sides[side] >= 2 * layers * steps, f"K4 on the {side} side: {sides[side]}")
@@ -2230,6 +2330,7 @@ def cli_phase(dev, data, out_dir: str) -> dict:
     check(l4["fused_adam"] == adam_launches_per_step(model) * tr4.steps_per_epoch,
           f"the resumed run launched fused_adam {l4['fused_adam']} times, not once a step of "
           "one epoch")
+    check_exact_topk(l4, 0, "the resumed CLI run, approx top-k")
     rows = csv_rows(os.path.join(ckpt, "train_epoch_metrics.csv"))
     check([r["epoch"] for r in rows] == ["1", "2", "3", "4"], f"train CSV after resume {rows}")
     rows = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))  # epoch 3 evaluated again
@@ -2290,7 +2391,7 @@ def cli_phase(dev, data, out_dir: str) -> dict:
                   for name, side in (("forward", tr4.model.i2i.ell.by_user),
                                      ("backward", tr4.model.i2i.ell.by_item)))
     main_launches = {k: launches[k] + l4[k] for k in ("masked_scores", "ell_gather_reduce",
-                                                      "fused_adam")}
+                                                      "fused_adam", "exact_topk")}
     return dict(model=tr4.model, launches=main_launches,
                 sides={k: sides[k] + l4["sides"][k] for k in sides}, steps=steps,
                 steps_per_epoch=tr.steps_per_epoch, n_leaves=n_leaves, epoch_s=epoch_s,
@@ -2582,6 +2683,7 @@ def zoo_cli_runs(root: str) -> dict:
         check(launches["masked_scores"] == 2 * n_batches,
               f"{name}: masked_scores launched {launches['masked_scores']} times for 2 evals of "
               f"{n_batches} batches")
+        check_exact_topk(launches, 2 * n_batches, name)
         check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
               f"{name}: fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves "
               f"in {steps} steps")
@@ -2803,7 +2905,7 @@ def zoo_phase(dev, data, ell, out_dir: str) -> dict:
     vs_cpu = zoo_card_vs_cpu(dev)
     cli_runs = zoo_cli_runs(out_dir)
     launches = {k: sum(r["launches"][k] for r in cli_runs["runs"].values())
-                for k in ("masked_scores", "ell_gather_reduce", "fused_adam")}
+                for k in ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk")}
     return dict(segment=seg, hybrid=hyb, k1_d256=k1, card_vs_cpu=vs_cpu,
                 launches=launches, **cli_runs)
 
@@ -3048,6 +3150,7 @@ def seq_cli_runs(root: str) -> dict:
         check(launches["masked_scores"] == evals * n_batches,
               f"{name}: masked_scores launched {launches['masked_scores']} times for {evals} "
               f"evals of {n_batches} batches")
+        check_exact_topk(launches, evals * n_batches, name)
         check(launches["ell_gather_reduce"] == launches["fused_adam"] == 0,
               f"{name}: K3/K4 launched on the seq path: {launches}")
         torch.cuda.synchronize()
@@ -3086,6 +3189,7 @@ def seq_resume_check(first: dict) -> dict:
     n_batches = tr2._eval_seqs.shape[0]
     check(launches["masked_scores"] == 2 * n_batches,  # the eval at the resume epoch, the final
           f"the resumed run launched masked_scores {launches['masked_scores']} times")
+    check_exact_topk(launches, 2 * n_batches, "the resumed SASRec run")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s_full, _ = first["trainer"].train_epoch(first["state"])
@@ -3127,6 +3231,7 @@ def seq_serving(dev, ckpt: str, root: str) -> dict:
     launches = read_counts()
     check(launches["masked_scores"] == 1, f"query launched masked_scores "
           f"{launches['masked_scores']} times")
+    check_exact_topk(launches, 1, "serve_seq query")
     printed = [int(p.split(":")[0]) for p in text.strip().split(": ", 1)[1].split()]
     check(not set(printed) & set(session), "a session item came back")
     seqs, seen = r._encode_sessions([session])
@@ -3202,10 +3307,10 @@ def seq_phase(dev, out_dir: str) -> dict:
     native_s = time.perf_counter() - t0
     check(native is not None, "the native host sampler did not build")
     log(f"[seq] native host sampler built and loaded in {native_s:.2f} s")
-    k1 = (sum(r["launches"]["masked_scores"] for r in runs.values())
-          + resume["launches"]["masked_scores"] + serving["launches"]["masked_scores"])
+    launches = {k: sum(r["launches"][k] for r in (*runs.values(), resume, serving))
+                for k in ("masked_scores", "exact_topk")}
     return dict(card_vs_cpu=vs_cpu, runs=runs, resume=resume, serving=serving, learning=learn, native_build_s=native_s,
-                launches={"masked_scores": k1})
+                launches=launches)
 
 
 # ---------------------------------------------------------------- hits phase
@@ -3319,6 +3424,7 @@ def hits_phase(dev, out_dir: str) -> dict:
     check(launches["masked_scores"] == len(rows) * n_batches
           and launches["masked_scores_bitplane"] == 0,
           f"hits: K1/K2 launched {launches} for {len(rows)} evals of {n_batches} batches")
+    check_exact_topk(launches, len(rows) * n_batches, "hits")
     for side in (model.ell.by_user, model.ell.by_item):  # each layer's forward and backward
         check(side.table.launches >= 2 * model.cfg.num_layers * steps,
               f"hits: K4 launched {side.table.launches} times on a side in {steps} steps")
@@ -3779,8 +3885,10 @@ def tools_phase(dev, out_dir: str, cli_model, hits_floor: float) -> dict:
     out["seconds"] = seconds
     out["launches"] = {k: sum(v["launches"].get(k, 0) for v in out.values() if "launches" in v)
                        for k in ("masked_scores", "masked_scores_bitplane", "ell_gather_reduce",
-                                 "fused_adam")}
+                                 "fused_adam", "exact_topk", "exact_topk_plain")}
     log(f"[tools] seconds: {seconds}; launches {out['launches']}")
+    check(out["launches"]["exact_topk_plain"] == 0,
+          f"the tools ranked by the plain exact path: {out['launches']}")
     return out
 
 
@@ -4599,7 +4707,10 @@ def mesh_phase(dev, out_dir: str, hits: dict) -> dict:
                       for k in ("steps_launches", "eval_serve_launches"))
                 + sum(out["hits"]["launches"][name] for out in ranks)
                 + sum(b["launches"][name] for out in ranks for b in out["blocks"].values())
-                for name in ("ell_gather_reduce", "masked_scores", "fused_adam")}
+                for name in ("ell_gather_reduce", "masked_scores", "fused_adam", "exact_topk",
+                             "exact_topk_plain")}
+    check(launches["exact_topk"] > 0 and launches["exact_topk_plain"] == 0,
+          f"the mesh ranks' exact top-k launches: {launches}")
     per_rank = [dict(k4_user_side=o["k4_user_side"], k1_shard=o["k1_shard"],
                      local_slots=o["local_slots"]) for o in ranks]
     whole_ms["slots"] = sum(c.numel() for c, _, _ in table.buckets)
@@ -4669,6 +4780,7 @@ def stress_phase(dev) -> dict:
     steps = 1 + stress_pod.build_parser().parse_args(STRESS_RUN).steps  # the first, then timed
     check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
           f"the stress run launched fused_adam {launches['fused_adam']} times in {steps} steps")
+    check_exact_topk(launches, launches["masked_scores"], "the stress eval")
     mem = res["memory"]
     log(f"[stress] {res['edges']} edges, 1M x 500k x 256 on one card: {wall_s:.1f} s, of it "
         f"the build and first step {res['build_s']} s; train step "
@@ -4700,6 +4812,8 @@ def stress_phase(dev) -> dict:
     check(small["launches"]["fused_adam"] == steps,  # LightGCN's two tables: one launch a step
           f"the stress smoke's rank 0 launched fused_adam {small['launches']['fused_adam']} "
           f"times in {steps} steps")
+    check_exact_topk(small["launches"], small["launches"]["masked_scores"],
+                     "the stress smoke's rank 0")
     log(f"[stress] --smoke on 4 gloo ranks: {smoke_s:.1f} s; rank 0's launches "
         f"{small['launches']}")
     return dict(plan={k: plan[k] for k in ("mesh", "fits", "min_model_axis_for_fit",
@@ -4746,6 +4860,7 @@ def main() -> int:
     errs = phase("kernels", kernel_phase, dev)
     errs.update(phase("kernels_train", kernel_phase_train, dev, data))
     ties = phase("topk_ties", exact_tie_check, dev)
+    ties["kernel"] = phase("exact_topk", time_exact_topk, dev)
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     serve = phase("serving", serving_phase, dev, GOWALLA_SHAPE, out_dir)
     train = phase("training", training_phase, dev, data)
@@ -4813,6 +4928,10 @@ def main() -> int:
                                        launches=cli["sides"]["i2i_forward"],
                                        max_abs_err=cli["i2i_k4_err"])
     kernels[-2]["launches_cli"] = cli["launches"]["fused_adam"]
+    kernels.append(exact_topk_entry(ties["kernel"], {
+        "serving": serve["launches"]["exact_topk"], "eval": ev["launches"]["exact_topk"],
+        "cli": cli["launches"]["exact_topk"], "zoo": zoo["launches"]["exact_topk"],
+        "seq": seq["launches"]["exact_topk"]}))
     # the mesh phase's launches, summed over its ranks (K2 is off the mesh path)
     for k in kernels:
         k["launches_mesh"] = mesh["launches"].get(k["name"], 0)

@@ -2,10 +2,12 @@
 ``U @ I^T``, train positives are pushed to −1e9 through the packed
 bitset, and `topk_scores` ranks them by one of three methods:
 
-- ``exact``: `exact_topk`, ``lax.top_k``'s values and ids: `torch.topk`
-  of k + 1 columns, put in ``lax.top_k``'s order (descending, ties
-  lowest column first, +0.0 above −0.0); only rows whose k-th and
-  (k + 1)-th values tie are sorted whole;
+- ``exact``: `exact_topk`, ``lax.top_k``'s values and ids (descending,
+  ties lowest column first, +0.0 above −0.0). On a CUDA float32 score
+  matrix it is one hand-written kernel (``csrc/exact_topk.cu``) that
+  ranks by `topk_key` and reads nothing on the host; elsewhere the plain
+  path: `torch.topk` of k + 1 columns put in ``lax.top_k``'s order, only
+  rows whose k-th and (k + 1)-th values tie sorted whole;
 - ``approx``: the TPU's ``approx_max_k`` (PartialReduce, aggregated to
   top-k): each row folds into L bins, each bin keeps its max, and an
   exact top-k of the bins follows. L and the fold are XLA's
@@ -16,15 +18,19 @@ bitset, and `topk_scores` ranks them by one of three methods:
 
 Every sort that stands in for ``lax.top_k`` (approx's top-k of the bins,
 threshold's candidates and its full-row fallbacks, the k columns that
-``exact`` keeps, the mesh's merge) ranks by `order_key`: descending in
-XLA's total order, −0.0 below +0.0, equal scores lowest column first.
+``exact``'s plain path keeps, the mesh's merge) ranks by `order_key`:
+descending in XLA's total order, −0.0 below +0.0, equal scores lowest
+column first.
 
 `masked_topk` scores through the CUDA kernel of
-`gsrs_tpu_torch.ops.scoring` on a CUDA tensor; the ranking is plain
-torch on every device."""
+`gsrs_tpu_torch.ops.scoring` on a CUDA tensor. ``LAUNCHES`` counts the
+exact kernel's launches (``exact_topk``) and the plain exact path's calls
+on a CUDA tensor (``exact_topk_plain``)."""
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -36,9 +42,11 @@ from gsrs_tpu_torch.utils.timer import span
 
 __all__ = ["NEG_INF", "score_users", "mask_train_positives", "topk_scores", "masked_topk",
            "approx_bins", "topk_approx", "topk_threshold", "stable_topk", "exact_topk",
-           "order_key"]
+           "order_key", "topk_key", "exact_topk_reference", "K_MAX", "LAUNCHES"]
 
 LANE = 128  # XLA's tiling of the reduced dimension (rank > 1)
+K_MAX = 256  # the largest k the exact kernel takes
+LAUNCHES = {"exact_topk": 0, "exact_topk_plain": 0}
 
 
 def score_users(user_emb: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
@@ -75,15 +83,25 @@ def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return scores.gather(1, idx), idx
 
 
-def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row-wise top-k with ``lax.top_k``'s values and ids. `torch.topk`
-    promises no order among equal scores, so it takes k + 1 columns: a row
-    whose k-th value is above its (k + 1)-th has one top-k set, which two
-    sorts of its k columns (ids ascending, then values descending, stable)
-    put in ``lax.top_k``'s order; a row whose k-th and (k + 1)-th values
-    tie (the one case where the set itself depends on the tie order) is
-    sorted whole (`stable_topk`). Finding such rows reads one (B,) mask
-    on the host. Scores are not NaN."""
+def topk_key(scores: torch.Tensor) -> torch.Tensor:
+    """The exact kernel's rank of each score, int64: `order_key` in the
+    high word, the column's complement (2^32 − 1 − column) in the low one.
+    Keys are distinct, and descending key order is ``lax.top_k``'s order
+    (the kernel's unsigned key is this one with its sign bit flipped)."""
+    col = torch.arange(scores.shape[1], dtype=torch.int64, device=scores.device)
+    return (order_key(scores).to(torch.int64) << 32) | (0xFFFFFFFF - col)
+
+
+def exact_topk_reference(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact kernel's plain version on a float32 ``scores``: a sort of
+    `topk_key`, the first k keys decoded into the values' own bits and
+    their columns."""
+    key = torch.sort(topk_key(scores), dim=1, descending=True).values[:, :k]
+    ok = (key >> 32).to(torch.int32)
+    return (ok ^ ((ok >> 31) & 0x7FFFFFFF)).view(torch.float32), 0xFFFFFFFF - (key & 0xFFFFFFFF)
+
+
+def _exact_topk_plain(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     m = scores.shape[1]
     vals, idx = torch.topk(scores, min(k + 1, m), dim=1)
     tied = vals[:, k - 1] == vals[:, k] if k < m else None
@@ -96,6 +114,63 @@ def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
         if rows.numel():
             vals[rows], idx[rows] = stable_topk(scores[rows], k)
     return vals, idx
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    from gsrs_tpu_torch.kernels import load_library
+
+    fn = load_library("exact_topk").gsrs_exact_topk
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _exact_topk_launch(scores: torch.Tensor, k: int):
+    B, m = scores.shape
+    dev = scores.device
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernel()(scores.data_ptr(), B, m, k, vals.data_ptr(), ids.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"exact_topk kernel launch failed: CUDA error {rc}")
+    LAUNCHES["exact_topk"] += 1
+    return vals, ids
+
+
+def takes_kernel(scores: torch.Tensor, k: int) -> bool:
+    """Whether `exact_topk` launches the kernel for ``scores`` and ``k``."""
+    B, m = scores.shape
+    return (scores.is_cuda and scores.dtype == torch.float32 and scores.is_contiguous()
+            and B >= 1 and 1 <= k <= K_MAX and k < m < 2**31)
+
+
+def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise top-k with ``lax.top_k``'s values and ids. Scores are not
+    NaN.
+
+    A contiguous CUDA float32 (B, m) ``scores`` with B ≥ 1, 1 ≤ k ≤
+    `K_MAX` and k < m < 2^31 launches the kernel (``csrc/exact_topk.cu``,
+    one block a row, inside a ``topk`` span with ``shape`` (B, m, k)):
+    every score keyed by `topk_key`, which has no ties, so the host reads
+    nothing; a failed launch raises. Every other input (a CPU tensor,
+    another dtype, a strided one, k ≥ m, k > `K_MAX`) takes the plain
+    path: `torch.topk` promises no order among equal scores, so it takes
+    k + 1 columns; a row whose k-th value is
+    above its (k + 1)-th has one top-k set, which two sorts of its k
+    columns (ids ascending, then values descending, stable) put in
+    ``lax.top_k``'s order; a row whose k-th and (k + 1)-th values tie (the
+    one case where the set itself depends on the tie order) is sorted
+    whole (`stable_topk`). Finding such rows reads one (B,) mask on the
+    host (``sync.topk.ties``)."""
+    if takes_kernel(scores, k):
+        with span("topk", shape=(*scores.shape, k)):
+            return _exact_topk_launch(scores, k)
+    if scores.is_cuda:
+        LAUNCHES["exact_topk_plain"] += 1
+    return _exact_topk_plain(scores, k)
 
 
 def topk_scores(

@@ -8,8 +8,10 @@ the top ``max(topks)`` by ``topk_method`` (`gsrs_tpu_torch.ops.topk`:
 exact, approx or threshold; in the bit-plane branch on the permuted
 columns, then mapped back), and sum recall, precision and NDCG on the
 device. The padded tail carries user weight 0. The host reads the sums
-once, at the end of `run`, and the top-k reads one mask a batch (exact:
-which rows tie at the k-th value; threshold: whether every row landed).
+once, at the end of `run`; on the card the exact top-k (its own kernel)
+reads nothing, while threshold reads one flag a batch (whether every row
+landed) and exact's plain path on the CPU one mask (which rows tie at the
+k-th value).
 Spans (`gsrs_tpu_torch.utils.timer.span`, recorded under a profile):
 ``eval.run``, ``eval.propagate``, and per batch ``eval.batch`` holding
 ``eval.score`` (K1), ``eval.topk`` and ``eval.metrics``; ``sync.eval.read``

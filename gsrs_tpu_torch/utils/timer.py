@@ -24,8 +24,8 @@ profile's start clears it), until `clear_spans`.
 
 Names in use: ``sync.*`` spans stand exactly where the host blocks on the
 card (one span a blocking read or copy) and nowhere else; the kernels'
-Python entries record ``k1``, ``k3`` and ``k4`` with the call's shapes as
-``shape``.
+Python entries record ``k1``, ``k3``, ``k4`` and ``topk`` with the call's
+shapes as ``shape``.
 """
 
 from __future__ import annotations

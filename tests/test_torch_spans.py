@@ -4,8 +4,9 @@ thread, the profiler's own clock, and the spans that training, the eval
 and a request record on the CPU. Marked ``gpu`` (run on the card): every
 host–device sync of a unit of each loop stands in a ``sync.*`` span (the
 count of `torch.cuda.set_sync_debug_mode`'s warnings), each such span ends
-as the card's work it waited for ends, and the kernels' spans carry their
-calls' shapes."""
+as the card's work it waited for ends, the kernels' spans carry their
+calls' shapes, and the exact top-k reads no tie rows on the card (the
+CPU's plain path reads them once a call, ``sync.topk.ties``)."""
 
 import itertools
 import threading
@@ -328,13 +329,17 @@ def test_a_sync_span_ends_as_the_cards_work_before_it_ends(cuda):
     """Host clock against the device timeline: the last device event that
     started before a sync span ended is the work it waited for; the span
     ends no earlier than 20 µs before that event's end and within 1 ms
-    after it. The profile holds two units and the second one's spans are
-    judged, so that none stands at the profile's very start."""
+    after it. The profile runs units for its first 5 ms (the profiler
+    drops the device events of its first milliseconds; a request takes
+    well under one) and then one more, whose spans are judged, so that
+    none stands at the profile's very start."""
     for name, unit in _units(cuda).items():
         unit()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            unit()
+            start = time.perf_counter()
+            while time.perf_counter() - start < 0.005:
+                unit()
             mark = time.time_ns()
             unit()
         device = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
@@ -377,3 +382,27 @@ def test_kernel_spans_carry_their_calls_shapes(cuda):
             assert s.attrs["shape"] == leaves
         elif s.name == "k1":
             assert s.attrs["shape"] == (1, r.m_items, 8, -(-r.m_items // 32))
+
+
+@pytest.mark.gpu
+def test_exact_topk_on_the_card_reads_no_tie_rows(cuda):
+    """The exact kernel ranks on the card: an eval's only sync is the read
+    of its sums and a request's are its three copies; each batch's and the
+    request's top-k is one ``topk`` span with its (B, m, k)."""
+    tr = _trainer(cuda, fused_adam="pallas")
+    ev = tr.evaluator
+    r = _retriever(cuda)
+    ev.run()
+    r.recommend([5], 20)
+    for unit, syncs, shape in (
+            (ev.run, ["sync.eval.read"], (16, tr.data.m_items, 20)),
+            (lambda: r.recommend([5], 20),
+             ["sync.serve.fetch", "sync.serve.fetch", "sync.serve.h2d"], (1, r.m_items, 20))):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            unit()
+        tape = spans()
+        assert sorted(s.name for s in tape if s.name.startswith("sync.")) == syncs
+        tops = [s for s in tape if s.name == "topk"]
+        assert tops and all(s.attrs["shape"] == shape for s in tops)
+    assert len(tops) == 1 and by_id(tape)[tops[0].parent].name == "serve.score"
+

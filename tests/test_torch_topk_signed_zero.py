@@ -17,6 +17,8 @@ for bit (−0.0 ≠ +0.0) on the same numpy input:
   different bins of the fold (JAX's CPU ``approx_max_k`` is exact, and
   each top-k score wins a bin of its own here);
 - `merge_topk` on one rank, its candidates in shuffled id order;
+- `exact_topk_reference` (the exact CUDA kernel's plain version: a sort of
+  its 64-bit key) on the boundary rows and the rounded rows;
 - the Evaluator's batch path without its GEMM: `mask_train_positives`
   then ``threshold`` on the same scores and bitset rows (the two GEMMs
   disagree on the sign of a zero, so the scores are handed to both).
@@ -151,6 +153,19 @@ def test_merge_on_one_rank_ranks_the_zeros_as_lax_top_k(jtopk, k):
     ids = torch.from_numpy(np.tile(perm, (4, 1)))
     got = merge_topk(torch.from_numpy(x[:, perm]), ids, k, single_device_mesh("cpu"))
     assert_bitwise(got, jax.lax.top_k(x, k))
+
+
+@pytest.mark.parametrize("k", [20, 21])
+@pytest.mark.parametrize("rows", ["boundary", "ties_0", "ties_1", "ties_2"])
+def test_the_kernels_key_order_ranks_the_zeros_as_lax_top_k(jtopk, rows, k):
+    """`exact_topk_reference` (the exact CUDA kernel's plain version) on the
+    boundary rows and on the rounded rows with their zero rows."""
+    import jax
+
+    x = boundary_rows(3000, 4, seed=50 + k) if rows == "boundary" else tie_rows(
+        3000, int(rows[-1]))
+    assert has_both_zeros(x[0] if rows == "boundary" else x[2])
+    assert_bitwise(ttopk.exact_topk_reference(torch.from_numpy(x), k), jax.lax.top_k(x, k))
 
 
 def test_evaluator_batch_without_its_gemm_ranks_the_zeros_as_lax_top_k(jtopk, candidate_calls):

@@ -7,7 +7,8 @@ above −0.0) bit for bit, at every k from 1 to m, on seeded standard
 normals rounded to 0, 1 and 2 decimals (many ties, and −0.0 where a small
 negative rounds to zero), with an all-zero row, an all −0.0 row, a row
 mixing the two zeros, and a row whose maximum repeats more than m/2 times.
-Then a Retriever: an int8 artifact whose item table repeats its rows
+The same of `exact_topk_reference`, the CUDA kernel's plain version (its
+composite key's order). Then a Retriever: an int8 artifact whose item table repeats its rows
 (equal rows quantize to equal scores), served by the port and by the JAX
 package, must give equal item ids.
 """
@@ -55,6 +56,17 @@ def test_exact_is_lax_top_k_bitwise(jax_exact, decimals):
     assert (np.signbit(x) & (x == 0)).any()  # −0.0 is in the input
     for k in range(1, M + 1):
         _bitwise_equal(ttopk.topk_scores(torch.from_numpy(x), k, "exact"), jax_exact(x, k))
+
+
+@pytest.mark.parametrize("decimals", [0, 1, 2])
+def test_the_kernels_key_order_is_lax_top_k_bitwise(jax_exact, decimals):
+    """`exact_topk_reference` (a sort of `topk_key`, the CUDA kernel's plain
+    version) gives ``lax.top_k``'s values and ids, and `stable_topk`'s."""
+    x = _tie_rows(decimals)
+    for k in range(1, M + 1):
+        got = ttopk.exact_topk_reference(torch.from_numpy(x), k)
+        _bitwise_equal(got, jax_exact(x, k))
+        _bitwise_equal(got, ttopk.stable_topk(torch.from_numpy(x), k))
 
 
 def test_exact_sorts_only_the_rows_tied_at_k(jax_exact, monkeypatch):
