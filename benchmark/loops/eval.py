@@ -28,6 +28,15 @@ from benchmark import data as bdata
 from benchmark import program, reference
 
 BLOCK = 2048  # users the reference scores at once
+# the names `check` returns, each with a limit in ``limits/<workload>.json``
+CHECKS = ("rank_gap",)
+
+
+def tiny(cfg: dict, traffic: dict):
+    """→ (cfg, traffic, limit overrides) at the size of the CPU tests."""
+    from benchmark.loops.train import tiny_graph
+
+    return tiny_graph(cfg), dict(traffic), {}
 
 
 def make_inputs(cfg: dict, traffic: dict, seed: int, device):

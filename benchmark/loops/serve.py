@@ -34,6 +34,16 @@ from benchmark import data as bdata
 from benchmark import reference
 
 BLOCK = 2048  # users the reference scores at once
+# the names `check` returns, each with a limit in ``limits/<workload>.json``
+CHECKS = ("rank_gap", "score_gap")
+
+
+def tiny(cfg: dict, traffic: dict):
+    """→ (cfg, traffic, limit overrides) at the size of the CPU tests:
+    5 warm-up requests, and 20 that the check samples."""
+    from benchmark.loops.train import tiny_graph
+
+    return tiny_graph(cfg), dict(traffic, warmup_requests=5, check_requests=20), {}
 
 
 def requests(x: bdata.Interactions, seed: int, which: int) -> List[np.ndarray]:

@@ -20,6 +20,7 @@ same triplets, gives the same losses and norms.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import statistics
@@ -34,6 +35,36 @@ from benchmark import program, reference
 
 BETA1 = 0.9
 LOWER = {"float32": torch.bfloat16, "bfloat16": torch.float8_e4m3fn}
+# the names `check` returns, each with a limit in ``limits/<workload>.json``
+CHECKS = ("sampler_invalid", "window_nonfinite", "loss_gap", "grad_gap", "change_gap")
+
+# The interactions of the graph loops' CPU tests
+TINY_DATA = dict(n_users=300, m_items=500, n_train=6000, n_test=1500, zipf_s=1.1,
+                 structure_seed=5)
+# bf16 rounding over the tiny graph and a 2,000-row batch reads up to 1.9e-6,
+# 4.5e-4 and 1.3e-4 on the CPU (five seeds), above the limits set from
+# readings at the cell's size; these stand in for them at the tiny size
+TINY_BF16_LIMITS = {"loss_gap": 1e-5, "grad_gap": 1e-3, "change_gap": 1e-3}
+
+
+def tiny_graph(cfg: dict) -> dict:
+    """``cfg`` at the size of the CPU tests, its settings kept: the tiny
+    interactions, a 2,000-row batch, test batches of 64 and, for the
+    tiled layout, G 4 x C 64."""
+    cfg = copy.deepcopy(cfg)
+    cfg["data"] = dict(TINY_DATA)
+    cfg["train"]["batch_size"] = 2000
+    cfg["eval"]["test_batch"] = 64
+    if cfg["model"].get("spmm_mode") == "tiled":
+        cfg["model"].update(tiled_groups=4, tiled_cols=64)
+    return cfg
+
+
+def tiny(cfg: dict, traffic: dict):
+    """→ (cfg, traffic, limit overrides) at the size of the CPU tests;
+    bf16 training is held to the tiny size's limits."""
+    bf16 = cfg["precision"]["propagation"] == "bfloat16"
+    return tiny_graph(cfg), dict(traffic), dict(TINY_BF16_LIMITS if bf16 else {})
 
 
 def make_inputs(cfg: dict, traffic: dict, seed: int, device):

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from benchmark import data
-from benchmark.tests.conftest import TINY_DATA
+from benchmark.loops.train import TINY_DATA
 
 
 def _keys(x):

@@ -1,15 +1,16 @@
 """A run whose timed path is broken underneath comes out not correct: the
 harness's look for a card skipped, the rest of the run driven on the CPU
-at a tiny size, once for each fault a cell can have. (No cell spans chips,
-so none can leave out the exchange between them.) And the control, the
-reference in the precision below the configuration's, fails at least one
-of each cell's limits."""
+at a tiny size, once for each fault a cell can have; each fault runs in
+every cell of the loop it breaks, picked from BENCHMARK.json by its
+mix's ``loop``. (No cell spans chips, so none can leave out the exchange
+between them.) And the control, the reference in the precision below the
+configuration's, fails at least one of each cell's limits."""
 
 import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.conftest import CELLS, tiny_cell
+from benchmark.tests.conftest import CELLS, cells_of, tiny_cell
 
 SEED = 2**31 + 202
 
@@ -18,7 +19,7 @@ def _run(name):
     return harness.run_cell(tiny_cell(name), SEED, 0.3, False, "cpu")
 
 
-@pytest.mark.parametrize("name", ["gowalla-train"])
+@pytest.mark.parametrize("name", cells_of("train"))
 def test_a_step_that_leaves_the_state_unchanged(name, monkeypatch):
     from gsrs_tpu_torch.train import fused_adam, optim
 
@@ -38,7 +39,7 @@ def test_a_step_that_leaves_the_state_unchanged(name, monkeypatch):
     assert not r["correct"] and r["checks"]["change_gap"]["value"] == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("name", ["gowalla-train"])
+@pytest.mark.parametrize("name", cells_of("train"))
 def test_half_the_batch_left_out(name, monkeypatch):
     from gsrs_tpu_torch.models.lightgcn import LightGCN
 
@@ -52,7 +53,8 @@ def test_half_the_batch_left_out(name, monkeypatch):
     assert not _run(name)["correct"]
 
 
-def test_an_eval_answer_altered(monkeypatch):
+@pytest.mark.parametrize("name", cells_of("eval"))
+def test_an_eval_answer_altered(name, monkeypatch):
     from gsrs_tpu_torch.train.evaluator import Evaluator
 
     right = Evaluator._top_items
@@ -64,11 +66,12 @@ def test_an_eval_answer_altered(monkeypatch):
         return top, valid
 
     monkeypatch.setattr(Evaluator, "_top_items", altered)
-    r = _run("amazon-book-eval")
+    r = _run(name)
     assert not r["correct"] and r["checks"]["rank_gap"]["value"] > 0
 
 
-def test_a_served_answer_altered(monkeypatch):
+@pytest.mark.parametrize("name", cells_of("serve"))
+def test_a_served_answer_altered(name, monkeypatch):
     from gsrs_tpu_torch.serve import Retriever
 
     right = Retriever._score_topk
@@ -80,7 +83,7 @@ def test_a_served_answer_altered(monkeypatch):
         return vals, top
 
     monkeypatch.setattr(Retriever, "_score_topk", altered)
-    assert not _run("gowalla-serve")["correct"]
+    assert not _run(name)["correct"]
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -15,6 +15,7 @@ def test_cell_on_the_card(name, trace, cuda_card):
     cell = harness.load_cell(name)
     r = harness.run_cell(cell, 2**31 + 303, 1.0, trace, cuda_card)
     assert r["correct"], r["checks"]
+    assert tuple(r["checks"]) == cell.loop.CHECKS
     assert r["device"]["platform"] == "gpu"
     if trace:
         assert r["device"]["busy_s"] > 0

@@ -17,6 +17,7 @@ def test_every_cell_runs_correct_on_the_cpu(name, trace):
     cell = tiny_cell(name)
     r = harness.run_cell(cell, 2**31 + 101, 0.3, trace, "cpu")
     assert r["correct"], r["checks"]
+    assert tuple(r["checks"]) == cell.loop.CHECKS
     assert r["attempted"] >= 1 and r["failed"] == 0
     assert list(r)[-1] == "checks"
     want = cell.per_layer if trace else cell.end_to_end

@@ -9,7 +9,7 @@ import types
 import pytest
 
 from benchmark import harness
-from benchmark.tests.conftest import tiny_cell
+from benchmark.tests.conftest import cells_of, tiny_cell
 
 MS = 1_000_000  # ns
 
@@ -116,10 +116,11 @@ def test_a_program_without_spans_reads_nothing(monkeypatch):
         assert harness.metric_reader(metric)(types.SimpleNamespace(work=work)) is None
 
 
-def test_a_tiny_traced_run_reads_its_own_window():
+@pytest.mark.parametrize("name", cells_of("serve"))
+def test_a_tiny_traced_run_reads_its_own_window(name):
     """Through the harness on the CPU: the tape holds the traced window
     alone (four syncs a request: h2d, the tie read, two copies back)."""
-    r = harness.run_cell(tiny_cell("gowalla-serve"), 2**31 + 5, 0.2, True, "cpu")
+    r = harness.run_cell(tiny_cell(name), 2**31 + 5, 0.2, True, "cpu")
     assert r["correct"]
     assert r["metrics"]["host_syncs.serve"]["value"] == 4.0
     assert r["metrics"]["host_issue_ms.serve"]["value"] > 0
