@@ -1,5 +1,6 @@
 """Shared pre-LN transformer encoder of SASRec and BERT4Rec (port of
-`gsrs_tpu.models._transformer`).
+`gsrs_tpu.models._transformer`), and BERT4Rec's published post-LN blocks
+(``post_ln``).
 
 The two models differ only in the attention mask, the FFN activation and
 the vocabulary rows (PAD vs PAD + MASK). Parameters keep the JAX
@@ -19,6 +20,13 @@ Numerics follow JAX's statement for statement:
   all masked gets a uniform softmax, finite, and its row is zeroed after
   the block;
 - the final LayerNorm runs in fp32.
+
+``post_ln`` takes BERT4Rec's published blocks instead (Sun et al., CIKM
+2019, Eqs. 4–5): h⁰ = v + p without the √d scale, A = LN(H +
+Dropout(MH(H))), Trm(H) = LN(A + Dropout(PFFN(A))), and no final
+LayerNorm (its parameters are not drawn: ``final_ln=False``). The
+dropout sites are the same three kinds; the released code's dropout of
+the attention probabilities is not taken.
 
 Dropout takes its keep masks as an argument (``keep_masks``, one per
 dropout site, in JAX's order: the embedding, then per block the attention
@@ -56,6 +64,7 @@ def init_encoder_params(
     d: int,
     num_blocks: int,
     ffn_hidden: int,
+    final_ln: bool = True,
 ) -> Params:
     """Embedding tables N(0, 0.1²), positional rows, the final LayerNorm,
     and per block ``b{i}_*`` attention, FFN and LayerNorm parameters, the
@@ -72,9 +81,10 @@ def init_encoder_params(
     params: Params = {
         "item_emb": 0.1 * normal(vocab_rows, d),  # row 0 is PAD
         "pos_emb": 0.1 * normal(max_len, d),
-        "ln_f_scale": torch.ones(d),
-        "ln_f_bias": torch.zeros(d),
     }
+    if final_ln:
+        params["ln_f_scale"] = torch.ones(d)
+        params["ln_f_bias"] = torch.zeros(d)
     for b in range(num_blocks):
         for w in ("wq", "wk", "wv", "wo"):
             params[f"b{b}_{w}"] = glorot(d, d)
@@ -116,9 +126,11 @@ def encode_transformer(
     bf16_compute: bool,
     activation: Callable[[torch.Tensor], torch.Tensor],
     keep_masks: Optional[List[torch.Tensor]] = None,
+    post_ln: bool = False,
 ) -> torch.Tensor:
     """→ (B, L, d) fp32 hidden states. ``keep_masks``: 1 + 2·num_blocks
-    keep masks of shape (B, L, d), or None for no dropout."""
+    keep masks of shape (B, L, d), or None for no dropout. ``post_ln``:
+    the published BERT4Rec blocks (the module's note)."""
     d = params["pos_emb"].shape[-1]
     cd = torch.bfloat16 if bf16_compute else torch.float32
     masks = iter(keep_masks) if (keep_masks is not None and dropout_rate > 0.0) else None
@@ -129,7 +141,10 @@ def encode_transformer(
         return t if masks is None else apply_dropout(t, next(masks), dropout_rate)
 
     pad_mask = (seqs != 0)[:, :, None]
-    x = params["item_emb"][seqs] * math.sqrt(d) + params["pos_emb"][None, :, :]
+    x = params["item_emb"][seqs]
+    if not post_ln:
+        x = x * math.sqrt(d)
+    x = x + params["pos_emb"][None, :, :]
     x = dropout(torch.where(pad_mask, x, 0.0).to(cd))
     H = num_heads
     hd = d // H
@@ -139,18 +154,29 @@ def encode_transformer(
             def w(name):
                 return params[f"b{b}_{name}"].to(cd)
 
-            h = layer_norm(x, params[f"b{b}_ln1_scale"], params[f"b{b}_ln1_bias"]).to(cd)
-            q, k, v = ((h @ w(n)).reshape(-1, max_len, H, hd) for n in ("wq", "wk", "wv"))
-            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
-            probs = torch.softmax(torch.where(mask, logits, NEG_LOGIT), dim=-1).to(cd)
-            attn = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
-            attn = attn.reshape(-1, max_len, d).to(cd)
-            x = x + dropout(attn @ w("wo"))
+            def ln(t, name):
+                return layer_norm(t, params[f"b{b}_{name}_scale"],
+                                  params[f"b{b}_{name}_bias"]).to(cd)
 
-            h = layer_norm(x, params[f"b{b}_ln2_scale"], params[f"b{b}_ln2_bias"]).to(cd)
-            ffn = activation(h @ w("ffn1") + w("ffn1_b"))
-            x = x + dropout(ffn @ w("ffn2") + w("ffn2_b"))
+            def attention(h):
+                q, k, v = ((h @ w(n)).reshape(-1, max_len, H, hd) for n in ("wq", "wk", "wv"))
+                logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+                probs = torch.softmax(torch.where(mask, logits, NEG_LOGIT), dim=-1).to(cd)
+                attn = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+                return attn.reshape(-1, max_len, d).to(cd) @ w("wo")
+
+            def ffn(h):
+                return activation(h @ w("ffn1") + w("ffn1_b")) @ w("ffn2") + w("ffn2_b")
+
+            if post_ln:
+                x = ln(x + dropout(attention(x)), "ln1")
+                x = ln(x + dropout(ffn(x)), "ln2")
+            else:
+                x = x + dropout(attention(ln(x, "ln1")))
+                x = x + dropout(ffn(ln(x, "ln2")))
             x = torch.where(pad_mask, x, 0.0)
+    if post_ln:
+        return x.float()
     return layer_norm(x.float(), params["ln_f_scale"], params["ln_f_bias"])
 
 

@@ -63,6 +63,7 @@ def build_seq_model(
     bf16: bool = False,
     mask_prob: float = 0.3,
     last_only_prob: float = 0.6,
+    published: int = 0,
     device: DeviceLike = None,
     generator: Optional[torch.Generator] = None,
 ):
@@ -70,8 +71,11 @@ def build_seq_model(
     its parameters drawn from the CPU ``generator`` (seed 0 when None):
     the one place that maps the flat CLI and serving hyperparameters onto
     each model's config. ``blocks`` is GRU4Rec's layer count, ``hidden``
-    its hidden width."""
+    its hidden width. ``published``: BERT4Rec as published, with that many
+    prediction slots a sequence (`models.bert4rec`)."""
     kw = dict(device=device, generator=generator)
+    if published and kind != "bert4rec":
+        raise ValueError(f"published is BERT4Rec's option, not {kind}'s")
     if kind == "sasrec":
         from gsrs_tpu_torch.models.sasrec import SASRec, SASRecConfig
 
@@ -84,7 +88,7 @@ def build_seq_model(
         return BERT4Rec(BERT4RecConfig(
             m_items=m_items, max_len=max_len, embedding_dim=dim, num_blocks=blocks,
             num_heads=heads, ffn_hidden=hidden, dropout_rate=dropout, mask_prob=mask_prob,
-            last_only_prob=last_only_prob, bf16_compute=bf16), **kw)
+            last_only_prob=last_only_prob, bf16_compute=bf16, published=published), **kw)
     if kind == "gru4rec":
         from gsrs_tpu_torch.models.gru4rec import GRU4Rec, GRU4RecConfig
 
@@ -96,12 +100,16 @@ def build_seq_model(
     )
 
 
+META_KEYS = ("m_items", "max_len", "dim", "hidden", "blocks", "heads")
+
+
 def seq_model_meta(model) -> dict:
     """The flat hyperparameters of a sequential model, `build_seq_model`'s
     inverse, as ``model_meta.json`` and serving artifacts hold them (the
-    JAX package's keys; ``kind`` is the class name, lower-cased)."""
+    JAX package's keys; ``kind`` is the class name, lower-cased), and
+    ``published`` where it is set."""
     c = model.cfg
-    return {
+    meta = {
         "kind": type(model).__name__.lower(),
         "m_items": int(c.m_items),
         "max_len": int(c.max_len),
@@ -110,3 +118,12 @@ def seq_model_meta(model) -> dict:
         "blocks": int(getattr(c, "num_blocks", 0) or getattr(c, "num_layers", 0)),
         "heads": int(getattr(c, "num_heads", 1)),
     }
+    if getattr(c, "published", 0):
+        meta["published"] = int(c.published)
+    return meta
+
+
+def seq_model_from_meta(meta: dict, **kw):
+    """`build_seq_model` of a meta (`seq_model_meta`'s), ``kw`` added."""
+    return build_seq_model(meta["kind"], **{k: meta[k] for k in META_KEYS},
+                           published=meta.get("published", 0), **kw)

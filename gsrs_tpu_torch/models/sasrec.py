@@ -76,10 +76,20 @@ class SeqModule(nn.Module):
         dropped), contiguous: a row slice of the table, no copy."""
         return self.item_emb[1:self.cfg.m_items + 1]
 
+    def scoring_query(self, seqs: torch.Tensor) -> torch.Tensor:
+        """(B, w) queries whose products with `scoring_catalog`'s rows are
+        the scores: the next-item query itself, unless the model's output
+        layer adds to it (BERT4Rec's Eq. 7 head)."""
+        return self.user_representations(seqs)
+
+    def scoring_catalog(self) -> torch.Tensor:
+        """(m_items, w) rows that eval and serving score against."""
+        return self.catalog()
+
     def score_catalog(self, seqs: torch.Tensor) -> torch.Tensor:
         """(B, m_items) scores over real 0-based item ids, fp32 (the plain
         product; eval and serving score through the masked kernel)."""
-        return self.user_representations(seqs) @ self.catalog().T
+        return self.scoring_query(seqs) @ self.scoring_catalog().T
 
 
 class SASRec(SeqModule):

@@ -13,6 +13,13 @@ the history masked. Runs on ``cuda:0`` and raises when there is no card;
 `gsrs_tpu_torch.cli` does (``--dist_backend gloo`` for several ranks on
 one card): batches over the data axis, the item table row-sharded over
 the model axis.
+
+BERT4Rec as published (Sun et al., CIKM 2019; ML-20M's run script):
+``--model bert4rec --published 40 --max_len 200 --dim 64 --hidden 256
+--heads 2 --batch 256 --lr 1e-4``. ``--published P`` builds the
+published model with P prediction slots a sequence, at the published
+cloze ratio and last-item-only share (`PUBLISHED_CLOZE`), and trains it
+with BERT's optimizer (`PUBLISHED_OPTIM`).
 """
 
 from __future__ import annotations
@@ -24,6 +31,13 @@ from typing import Optional
 
 from gsrs_tpu_torch.cli import add_backend_flag, launch_if_needed
 from gsrs_tpu_torch.device import DeviceLike
+
+# BERT4Rec's published cloze: ρ = 0.2, and one last-item-only sample a user
+# beside the released data's ten cloze copies
+PUBLISHED_CLOZE = dict(mask_prob=0.2, last_only_prob=1 / 11)
+# BERT's optimizer (the released code's optimization.py and run_ml-20m.sh)
+PUBLISHED_OPTIM = dict(warmup_steps=100, decay_steps=400_000, weight_decay=0.01,
+                       clip_norm=5.0, adam_eps=1e-6)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,6 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=0.2)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--decay", type=float, default=0.0)
+    p.add_argument("--published", type=int, default=0,
+                   help="BERT4Rec as published with this many prediction slots a sequence "
+                        "(40 in ML-20M's run script), trained with BERT's optimizer")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--eval_every", type=int, default=10)
     p.add_argument("--topks", type=str, default="[10,20]")
@@ -92,10 +109,11 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
     print(f"[seq] {seq_data.name}: {len(seq_data.train_seqs)} sequences, "
           f"{seq_data.m_items} items, max_len {seq_data.max_len}")
 
+    published = dict(PUBLISHED_CLOZE, published=args.published) if args.published else {}
     model = build_seq_model(args.model, m_items=seq_data.m_items, max_len=args.max_len,
                             dim=args.dim, hidden=args.hidden, blocks=args.blocks,
                             heads=args.heads, dropout=args.dropout, bf16=args.bf16,
-                            device=device)
+                            device=device, **published)
     mesh = None
     if args.data_axis * args.model_axis > 1:
         from gsrs_tpu_torch.parallel.mesh import make_mesh
@@ -104,7 +122,7 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
         print(f"[seq] mesh: data={args.data_axis} × model={args.model_axis} ({mesh.backend})")
     trainer = SeqTrainer(model, seq_data, batch_size=args.batch, lr=args.lr, decay=args.decay,
                          seed=args.seed, topks=topks_from_string(args.topks), mesh=mesh,
-                         device=device)
+                         device=device, **(PUBLISHED_OPTIM if args.published else {}))
     state = trainer.fit(epochs=args.epochs, checkpoint_dir=args.checkpoint_dir,
                         eval_every=args.eval_every, resume=args.resume,
                         tensorboard=bool(args.tensorboard), comment=args.comment)

@@ -8,7 +8,9 @@ holds the model's hyperparameters and parameters, and each request chunk
 runs the encoder, one launch of the masked-scoring CUDA kernel
 (`gsrs_tpu_torch.ops.scoring`, K1) over the real item rows with the
 session's seen-items bitset, and the exact top-k in ``lax.top_k``'s
-order (`gsrs_tpu_torch.ops.topk.exact_topk`).
+order (`gsrs_tpu_torch.ops.topk.exact_topk`). The query and the rows
+are the model's `scoring_query` and `scoring_catalog`: for BERT4Rec's
+Eq. 7 head, (GELU(h·W^P + b^P) ‖ 1) against (E ‖ b^O).
 
 CLI:
   python -m gsrs_tpu_torch.serve_seq export --checkpoint_dir ckpts --out seq.npz
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
-from gsrs_tpu_torch.models.registry import SEQ_MODELS, build_seq_model
+from gsrs_tpu_torch.models.registry import SEQ_MODELS, seq_model_from_meta
 from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
 from gsrs_tpu_torch.ops.linalg import fp32_reduction
 from gsrs_tpu_torch.ops.scoring import masked_scores
@@ -119,8 +121,8 @@ class SeqRetriever:
         K1 over the real item rows with ``seen_rows`` (b, W) masked, and
         the top-k → (scores, 0-based item ids), each (b, k)."""
         with fp32_reduction():
-            q = self.model.user_representations(seqs).contiguous()
-            return topk_scores(masked_scores(q, self.model.catalog(), seen_rows), k)
+            q = self.model.scoring_query(seqs).contiguous()
+            return topk_scores(masked_scores(q, self.model.scoring_catalog(), seen_rows), k)
 
 
 def export_seq_model(
@@ -133,14 +135,17 @@ def export_seq_model(
     hidden: int = 64,
     blocks: int = 2,
     heads: int = 1,
+    published: int = 0,
 ) -> None:
     """A self-contained serving artifact: the hyperparameters (JSON meta)
     and the parameters (``param/<name>``) in one npz, the JAX package's
-    layout."""
+    layout; BERT4Rec's ``published`` joins the meta where it is set."""
     if kind not in SEQ_MODELS:
         raise ValueError(f"unknown sequential model '{kind}'")
     meta = {"kind": kind, "m_items": int(m_items), "max_len": int(max_len), "dim": int(dim),
             "hidden": int(hidden), "blocks": int(blocks), "heads": int(heads)}
+    if published:
+        meta["published"] = int(published)
     arrays = {f"param/{k}": (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                              else np.asarray(v)) for k, v in params.items()}
     np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
@@ -152,9 +157,7 @@ def load_seq_retriever(path: str, batch_size: int = 64,
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"]))
         params = {k[len("param/"):]: z[k] for k in z.files if k.startswith("param/")}
-    model = build_seq_model(meta["kind"], m_items=meta["m_items"], max_len=meta["max_len"],
-                            dim=meta["dim"], hidden=meta["hidden"], blocks=meta["blocks"],
-                            heads=meta["heads"], dropout=0.0, device="cpu")
+    model = seq_model_from_meta(meta, dropout=0.0, device="cpu")
     return SeqRetriever(model, params, batch_size=batch_size, device=device)
 
 
@@ -187,9 +190,7 @@ def export_checkpoint(args) -> None:
         tm = {"kind": args.model, "m_items": m_items, "max_len": args.max_len, "dim": args.dim,
               "hidden": args.hidden, "blocks": args.blocks, "heads": args.heads}
     kind = tm["kind"]
-    model = build_seq_model(kind, m_items=tm["m_items"], max_len=tm["max_len"], dim=tm["dim"],
-                            hidden=tm["hidden"], blocks=tm["blocks"], heads=tm["heads"],
-                            device=resolve_device(args.device))
+    model = seq_model_from_meta(tm, device=resolve_device(args.device))
     ckpt = CheckpointManager(args.checkpoint_dir)
     path = ckpt.resolve_resume_path(None)
     if path is None:
@@ -198,7 +199,7 @@ def export_checkpoint(args) -> None:
     model.load_state_dict(ckpt.restore(path)["params"])
     export_seq_model(model.params(), kind, tm["m_items"], args.out, max_len=tm["max_len"],
                      dim=tm["dim"], hidden=tm["hidden"], blocks=tm["blocks"],
-                     heads=tm["heads"])
+                     heads=tm["heads"], published=tm.get("published", 0))
     print(f"[serve_seq] exported {args.out}: {kind}, {tm['m_items']} items")
 
 

@@ -7,18 +7,28 @@ float32 rounding included: the update after ``count`` steps uses
 ``schedule(count)``, so a boundary b scales the updates from count b on.
 torch's per-epoch `MultiStepLR` does not give this, so the trainer sets
 the learning rate itself before every step.
+
+`ScheduledAdam` also takes BERT's training (the sequential trainer's
+published BERT4Rec): decoupled weight decay on the parameters of two or
+more dimensions (matrices and embeddings; LayerNorm parameters and
+biases are not decayed), `torch.optim.AdamW` with Adam's bias
+correction, and the gradient clipped to a global norm before the step
+(`torch.nn.utils.clip_grad_norm_`: g · min(1, c / (‖g‖ + 1e-6))), with
+`linear_warmup_decay`'s schedule. Their defaults leave the step as it
+was: `torch.optim.Adam` over one group, no clipping.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from gsrs_tpu_torch.config import TrainConfig
 from gsrs_tpu_torch.train.fused_adam import FusedAdam, FusedAdamState
+from gsrs_tpu_torch.utils.timer import span
 
 Schedule = Callable[[int], float]
 
@@ -41,6 +51,22 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Schedule:
     return schedule
 
 
+def linear_warmup_decay(lr: float, warmup_steps: int, decay_steps: int) -> Schedule:
+    """BERT's schedule (``optimization.py`` of its released code): the
+    update after ``count`` steps uses lr · count / warmup_steps while
+    count < warmup_steps, else lr · (1 − min(count, decay_steps) /
+    decay_steps) (no decay where ``decay_steps`` is 0)."""
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return lr * count / warmup_steps
+        if not decay_steps:
+            return lr
+        return lr * (1.0 - min(count, decay_steps) / decay_steps)
+
+    return schedule
+
+
 @dataclasses.dataclass
 class AdamState:
     count: int  # steps taken
@@ -50,22 +76,34 @@ class AdamState:
 @dataclasses.dataclass
 class ScheduledAdam:
     """``fused_adam="off"``: `torch.optim.Adam` (betas (0.9, 0.999), eps
-    1e-8) with its learning rate set from the schedule before each step."""
+    1e-8) with its learning rate set from the schedule before each step;
+    with ``weight_decay``, `torch.optim.AdamW` decaying the parameters of
+    two or more dimensions; with ``clip_norm``, the gradient clipped to
+    that global norm first (span ``train.clip``)."""
 
     schedule: Schedule
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: Optional[float] = None
 
     def init(self, params: Dict[str, torch.nn.Parameter]) -> AdamState:
-        opt = torch.optim.Adam(list(params.values()), lr=self.schedule(0),
-                               betas=(self.b1, self.b2), eps=self.eps)
-        return AdamState(0, opt)
+        kw = dict(lr=self.schedule(0), betas=(self.b1, self.b2), eps=self.eps)
+        if not self.weight_decay:
+            return AdamState(0, torch.optim.Adam(list(params.values()), **kw))
+        ps = list(params.values())
+        groups = [{"params": [p for p in ps if p.dim() >= 2], "weight_decay": self.weight_decay},
+                  {"params": [p for p in ps if p.dim() < 2], "weight_decay": 0.0}]
+        return AdamState(0, torch.optim.AdamW([g for g in groups if g["params"]], **kw))
 
     def step(self, params: Dict[str, torch.nn.Parameter], state: AdamState) -> AdamState:
         lr = self.schedule(state.count)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
+        if self.clip_norm is not None:
+            with span("train.clip"):
+                torch.nn.utils.clip_grad_norm_(list(params.values()), self.clip_norm)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         return AdamState(state.count + 1, state.optimizer)

@@ -6,12 +6,28 @@ all-PAD rows, in one permutation a epoch; per step the shifted input, the
 next item as the positive, a uniform negative over the real ids (0 where
 the positive is PAD), the model's dropout masks (and BERT4Rec's cloze
 corruption), the loss plus ``decay · reg``, and Adam at a constant
-learning rate (`train.optim.ScheduledAdam`, as ``optax.adam(lr)``). The
-draws of a step are made apart from the loss (`SeqTrainer.draw_step`)
-from a `torch.Generator` seeded from (seed, epoch, step), the
-permutation's from (seed, epoch): a run resumed at epoch e equals one
-that never stopped, bit for bit, and tests can hand the port JAX's draws
+learning rate (`train.optim.ScheduledAdam`, as ``optax.adam(lr)``); or,
+with ``warmup_steps``/``decay_steps``, ``weight_decay`` and
+``clip_norm``, BERT's schedule (linear warm-up, then linear decay to 0),
+decoupled weight decay on the matrices and embeddings, and the gradient
+clipped to a global norm (BERT4Rec's published training). The draws of a
+step are made apart from the loss (`SeqTrainer.draw_step`) from a
+`torch.Generator` seeded from (seed, epoch, step), the permutation's
+from (seed, epoch): a run resumed at epoch e equals one that never
+stopped, bit for bit, and tests can hand the port JAX's draws
 (`run_steps`). Parameters live in the model and are updated in place.
+A `train_epoch` call trains the rest of the epoch, or, with
+``steps_per_call`` set, exactly that many steps, going on where the last
+call stopped in the epoch's permutation and into the next epoch's.
+
+Spans (`gsrs_tpu_torch.utils.timer.span`, recorded under a profile):
+``train.call`` a call (``shape`` (steps, B, L)), ``train.step`` a step,
+holding ``train.sample`` (the draws), ``train.forward`` (the model's own
+spans inside: BERT4Rec's published loss records ``seq.encode`` and
+``seq.head``, ``shape`` (slots, m, d)), ``train.backward`` and
+``train.optimizer`` (``train.clip`` inside, where the gradient is
+clipped); ``sync.train.loss`` around the one read of the call's mean
+loss. A step reads nothing on the host.
 
 Eval (leave-last-item-out; HR@k is recall@k with one ground-truth item):
 per padded batch of ``eval_batch`` users, the model's query, then the
@@ -55,9 +71,10 @@ from gsrs_tpu_torch.parallel.collectives import (
 from gsrs_tpu_torch.parallel.mesh import single_device_mesh
 from gsrs_tpu_torch.parallel.seq_sharding import SEQ_TABLES, SeqShardings, slice_rows
 from gsrs_tpu_torch.train.optim import (
-    ScheduledAdam, load_optimizer_state, optimizer_state_dict,
+    ScheduledAdam, linear_warmup_decay, load_optimizer_state, optimizer_state_dict,
 )
 from gsrs_tpu_torch.train.trainer import stream_seed
+from gsrs_tpu_torch.utils.timer import span
 
 _PERM, _STEP = 0, 1  # the random streams of an epoch
 
@@ -65,11 +82,12 @@ _PERM, _STEP = 0, 1  # the random streams of an epoch
 @dataclasses.dataclass
 class SeqTrainState:
     """The model's parameters (live, by the JAX package's names), the
-    optimizer state and the epoch count."""
+    optimizer state, the epoch count and the next step of the epoch."""
 
     params: Dict[str, torch.nn.Parameter]
     opt_state: Any
     epoch: int = 0
+    step: int = 0
 
 
 class StepDraws(NamedTuple):
@@ -105,7 +123,9 @@ class SeqTrainer:
     """Trains ``model`` (SASRec, GRU4Rec or BERT4Rec on ``device``, default
     ``cuda:0``: on a mesh, the rank's device) on ``data``. ``mesh``
     shards ``model`` in place; batch_size and eval_batch must divide by
-    its data axis."""
+    its data axis. ``warmup_steps``, ``decay_steps``, ``weight_decay``,
+    ``clip_norm`` and ``adam_eps`` set the optimizer (module note); their
+    defaults give Adam at the constant ``lr``."""
 
     def __init__(
         self,
@@ -119,10 +139,18 @@ class SeqTrainer:
         eval_batch: int = 256,
         mesh: Optional[Any] = None,
         device: DeviceLike = None,
+        warmup_steps: int = 0,
+        decay_steps: int = 0,
+        weight_decay: float = 0.0,
+        clip_norm: Optional[float] = None,
+        adam_eps: float = 1e-8,
     ):
         self.device = dev = resolve_device(device)
         if model.item_emb.device != dev:
             raise ValueError(f"the model is on {model.item_emb.device}, the trainer on {dev}")
+        if mesh is not None and getattr(model.cfg, "published", 0):
+            raise ValueError("the published cloze's softmax over the catalog is not sharded: "
+                             "train it on one device")
         if mesh is not None and (batch_size % mesh.data_size or eval_batch % mesh.data_size):
             raise ValueError(f"batch_size {batch_size} and eval_batch {eval_batch} must divide "
                              f"by the data axis ({mesh.data_size})")
@@ -139,7 +167,15 @@ class SeqTrainer:
         self.seed = seed
         self.topks = tuple(topks)
         self.eval_batch = eval_batch
-        self.optimizer = ScheduledAdam(lambda count: float(np.float32(lr)))
+        if warmup_steps or decay_steps:
+            schedule = linear_warmup_decay(lr, warmup_steps, decay_steps)
+        else:
+            schedule = lambda count: float(np.float32(lr))  # noqa: E731
+        self.optimizer = ScheduledAdam(schedule, eps=adam_eps, weight_decay=weight_decay,
+                                       clip_norm=clip_norm)
+        # steps a `train_epoch` call runs at most; None: the rest of the epoch
+        self.steps_per_call: Optional[int] = None
+        self._perm: Optional[Tuple[int, torch.Tensor]] = None
 
         L = data.max_len
         n = len(data.train_seqs)
@@ -206,16 +242,19 @@ class SeqTrainer:
         inp[:, 1:] = seqs[:, :-1]
         draws = to_device(draws, self.device)
         with fp32_reduction():  # the backward's bf16 products too
-            if self.mesh is None:
-                loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model)
-                total = loss + self.decay * aux["reg"]
-            else:
-                total = self._mesh_share(inp, seqs, draws)
-            total.backward()
-        if self.mesh is not None:
-            sum_replicated_grads([p for k, p in state.params.items() if k not in SEQ_TABLES],
-                                 self.mesh)
-        opt_state = self.optimizer.step(state.params, state.opt_state)
+            with span("train.forward"):
+                if self.mesh is None:
+                    loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model)
+                    total = loss + self.decay * aux["reg"]
+                else:
+                    total = self._mesh_share(inp, seqs, draws)
+            with span("train.backward"):
+                total.backward()
+                if self.mesh is not None:
+                    sum_replicated_grads(
+                        [p for k, p in state.params.items() if k not in SEQ_TABLES], self.mesh)
+        with span("train.optimizer"):
+            opt_state = self.optimizer.step(state.params, state.opt_state)
         return dataclasses.replace(state, opt_state=opt_state), total.detach()
 
     def _mesh_share(self, inp, seqs, draws: StepDraws) -> torch.Tensor:
@@ -239,7 +278,8 @@ class SeqTrainer:
         on the device)."""
         losses = []
         for seqs, d in zip(torch.as_tensor(batches, device=self.device), draws):
-            state, loss = self._step(state, seqs.long(), d)
+            with span("train.step"):
+                state, loss = self._step(state, seqs.long(), d)
             losses.append(loss)
         return state, self._global(torch.stack(losses))
 
@@ -247,26 +287,49 @@ class SeqTrainer:
         """The ranks' loss shares summed into the steps' losses."""
         return losses if self.mesh is None else all_reduce_(losses, self.mesh)
 
+    def _epoch_perm(self, epoch: int) -> torch.Tensor:
+        """The epoch's permutation of the padded sequences (the last one
+        drawn is kept)."""
+        if self._perm is None or self._perm[0] != epoch:
+            g = torch.Generator(self.device).manual_seed(stream_seed(self.seed, epoch, 0, _PERM))
+            self._perm = (epoch, torch.randperm(self.train_seqs.shape[0], generator=g,
+                                                device=self.device))
+        return self._perm[1]
+
     def epoch_batches(self, epoch: int) -> torch.Tensor:
         """The epoch's (steps, B, L) batches: one permutation of the
         padded sequences."""
-        g = torch.Generator(self.device).manual_seed(stream_seed(self.seed, epoch, 0, _PERM))
-        perm = torch.randperm(self.train_seqs.shape[0], generator=g, device=self.device)
-        return self.train_seqs[perm].view(-1, self.batch_size, self.data.max_len)
+        return self.train_seqs[self._epoch_perm(epoch)].view(-1, self.batch_size,
+                                                              self.data.max_len)
+
+    def _batch(self, epoch: int, step: int) -> torch.Tensor:
+        """Batch ``step`` of `epoch_batches` (``epoch``)."""
+        B = self.batch_size
+        return self.train_seqs[self._epoch_perm(epoch)[step * B:(step + 1) * B]]
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(
             stream_seed(self.seed, epoch, step, _STEP))
 
     def train_epoch(self, state: SeqTrainState) -> Tuple[SeqTrainState, float]:
-        """One epoch → (state, the mean step loss, read once)."""
+        """One call: the rest of the epoch, or ``steps_per_call`` steps
+        across epochs → (state, the mean step loss, read once)."""
+        steps = self.steps_per_call or self.steps_per_epoch - state.step
+        epoch, i = state.epoch, state.step
         losses = []
-        for i, seqs in enumerate(self.epoch_batches(state.epoch)):
-            draws = self.draw_step(seqs, self.step_generator(state.epoch, i))
-            state, loss = self._step(state, seqs, draws)
-            losses.append(loss)
-        mean = float(self._global(torch.stack(losses)).mean())
-        return dataclasses.replace(state, epoch=state.epoch + 1), mean
+        with span("train.call", shape=(steps, self.batch_size, self.data.max_len)):
+            for _ in range(steps):
+                with span("train.step"):
+                    seqs = self._batch(epoch, i)
+                    with span("train.sample"):
+                        draws = self.draw_step(seqs, self.step_generator(epoch, i))
+                    state, loss = self._step(state, seqs, draws)
+                losses.append(loss)
+                epoch, i = (epoch + 1, 0) if i + 1 == self.steps_per_epoch else (epoch, i + 1)
+            mean = self._global(torch.stack(losses)).mean()
+            with span("sync.train.loss"):
+                mean = float(mean)
+        return dataclasses.replace(state, epoch=epoch, step=i), mean
 
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
@@ -295,10 +358,10 @@ class SeqTrainer:
         on a mesh, of this rank's data slice, the catalog scored shard by
         shard and merged over the model axis."""
         if self.mesh is None:
-            items = self.model.catalog()
+            items = self.model.scoring_catalog()
             for seqs, users, weights in zip(self._eval_seqs, self._eval_users,
                                             self._eval_weights):
-                q = self.model.user_representations(seqs).contiguous()
+                q = self.model.scoring_query(seqs).contiguous()
                 scores = masked_scores(q, items, self.hist_bitset.index_select(0, users))
                 yield seqs, users, weights, topk_scores(scores, max_k)[1]
             return
@@ -306,11 +369,11 @@ class SeqTrainer:
         from gsrs_tpu_torch.parallel.sharding import call_with
 
         full = self._sh.gathered(self.model)
-        items = call_with(self.model, full, "catalog")[self._lo:self._hi].contiguous()
+        items = call_with(self.model, full, "scoring_catalog")[self._lo:self._hi].contiguous()
         part = self._sh.batch_spec(self.eval_batch)
         for seqs, users, weights in zip(self._eval_seqs, self._eval_users, self._eval_weights):
             seqs, users, weights = seqs[part], users[part], weights[part]
-            q = call_with(self.model, full, "user_representations", seqs).contiguous()
+            q = call_with(self.model, full, "scoring_query", seqs).contiguous()
             _, top = sharded_topk(q, items, self._hist_shard.index_select(0, users), max_k,
                                   self.mesh, self._lo, self.data.m_items)
             yield seqs, users, weights, top
@@ -332,13 +395,16 @@ class SeqTrainer:
         checkpoint, an eval before every ``eval_every``-th epoch with a
         best-NDCG checkpoint on improvement, ``last`` after every epoch,
         and a final eval of the last state. Without ``checkpoint_dir`` it
-        is the epoch loop with its evals."""
+        is the epoch loop with its evals. It trains whole epochs:
+        ``steps_per_call`` must be unset."""
         from gsrs_tpu_torch.models.registry import seq_model_meta
         from gsrs_tpu_torch.train.checkpoint import CheckpointManager
         from gsrs_tpu_torch.train.logging import (
             TensorboardWriter, make_train_csv, make_valid_csv,
         )
 
+        if self.steps_per_call:
+            raise ValueError("fit trains whole epochs: unset steps_per_call")
         state = state or self.init_state()
         primary = self.mesh is None or self.mesh.is_primary
         verbose = verbose and primary
@@ -396,12 +462,16 @@ class SeqTrainer:
 
     # ------------------------------------------------------------ checkpoint
     def ckpt_state(self, state: SeqTrainState) -> Dict[str, Any]:
-        """A checkpoint: {params (by name), opt_state, epoch}, the item
-        table canonical (unpadded). On a mesh every rank calls it."""
+        """A checkpoint: {params (by name), opt_state, epoch, and step
+        where a call stopped inside the epoch}, the item table canonical
+        (unpadded). On a mesh every rank calls it."""
         params, opt = self._sh.canonical_state(
             {k: p.detach() for k, p in state.params.items()},
             optimizer_state_dict(state.opt_state, state.params), self._canonical_rows)
-        return {"params": params, "opt_state": opt, "epoch": int(state.epoch)}
+        out = {"params": params, "opt_state": opt, "epoch": int(state.epoch)}
+        if state.step:
+            out["step"] = int(state.step)
+        return out
 
     def _save(self, save, state: SeqTrainState, *args) -> None:
         """``save(checkpoint, *args)`` on rank 0 (every rank gathers)."""
@@ -427,7 +497,8 @@ class SeqTrainer:
                                      f"{tuple(p.shape)}")
                 p.copy_(src)
         opt_state = load_optimizer_state(self.optimizer, state.params, saved["opt_state"])
-        return SeqTrainState(state.params, opt_state, int(saved["epoch"]))
+        return SeqTrainState(state.params, opt_state, int(saved["epoch"]),
+                             int(saved.get("step", 0)))
 
     def _log_eval(self, state, metrics, valid_csv, verbose, tb) -> None:
         tb.eval_metrics(metrics, self.topks, state.epoch)
