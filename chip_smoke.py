@@ -342,6 +342,7 @@ ZOO_PARAM_ATOL = 5e-5
 SEQ_RUNS = {"sasrec": ["--model", "sasrec"], "gru4rec": ["--model", "gru4rec"],
             "bert4rec": ["--model", "bert4rec"], "sasrec_bf16": ["--model", "sasrec", "--bf16"]}
 SEQ_EPOCHS = 2
+SEQ_GATHERS = {"sasrec": 2, "gru4rec": 1, "bert4rec": 2, "sasrec_bf16": 2}  # a step's
 SEQ_LEARN_EPOCHS = 20
 SEQ_REQUESTS = 20
 # card vs CPU: 3 steps of each configuration on the 1,500 × 2,000 stand-in's sequences
@@ -372,13 +373,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 L2_BYTES = 50 * 2**20  # the H100's L2: a timing meant to read HBM cycles through more
-KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk")
+KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk", "gather_rows_grad")
 SOURCES = {
     "masked_scores": "gsrs_tpu_torch/csrc/masked_scores.cu",
     "masked_scores_bitplane": "gsrs_tpu_torch/csrc/masked_scores.cu",
     "ell_gather_reduce": "gsrs_tpu_torch/csrc/ell_gather_reduce.cu",
     "fused_adam": "gsrs_tpu_torch/csrc/fused_adam.cu",
     "exact_topk": "gsrs_tpu_torch/csrc/exact_topk.cu",
+    "gather_rows_grad": "gsrs_tpu_torch/csrc/gather_rows_grad.cu",
 }
 REPLACES = {
     "masked_scores": "gsrs_tpu/ops/pallas_kernels.py:65",
@@ -386,6 +388,8 @@ REPLACES = {
     "fused_adam": "gsrs_tpu/train/fused_adam.py:76",
     "ell_gather_reduce": "tools/probe_pallas_gather.py:28",
     "exact_topk": "no Pallas kernel: lax.top_k in gsrs_tpu/ops/topk.py:topk_scores (exact)",
+    "gather_rows_grad": "no Pallas kernel: XLA's scatter-add, the gradient of a table row "
+                        "gather",
 }
 
 
@@ -592,10 +596,11 @@ def bound(B: int, d: int, m: int, W: int):
 
 def counters():
     """Every kernel wrapper's launch-count dict."""
-    from gsrs_tpu_torch.ops import ell_kernel, scoring, topk
+    from gsrs_tpu_torch.ops import ell_kernel, gather, scoring, topk
     from gsrs_tpu_torch.train import fused_adam
 
-    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES, topk.LAUNCHES)
+    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES, topk.LAUNCHES,
+            gather.LAUNCHES)
 
 
 def zero_counts() -> None:
@@ -615,6 +620,22 @@ def check_exact_topk(launches: dict, calls: int, what: str) -> None:
     check(launches["exact_topk"] == calls and launches["exact_topk_plain"] == 0,
           f"{what}: exact_topk launched {launches['exact_topk']} times for {calls} top-k calls "
           f"(the plain path {launches['exact_topk_plain']} times)")
+
+
+def check_gather_rows_grad(launches: dict, calls: int, what: str) -> None:
+    """``what``'s table gradients by the gather kernel, once a gather call
+    of each step (`gsrs_tpu_torch.ops.gather`), and never by its plain
+    version."""
+    check(launches["gather_rows_grad"] == calls and launches["gather_rows_grad_plain"] == 0,
+          f"{what}: gather_rows_grad launched {launches['gather_rows_grad']} times for {calls} "
+          f"gathers (the plain version {launches['gather_rows_grad_plain']} times)")
+
+
+def bpr_gathers(model) -> int:
+    """The gathers a LightGCN-family BPR step makes (`_pairwise_bpr`): the
+    users' and the items' rows, and with ``reg_mode`` "ego" the raw
+    tables' too."""
+    return 4 if model.cfg.reg_mode == "ego" else 2
 
 
 def epoch_steps(trainer) -> int:
@@ -899,6 +920,109 @@ def exact_topk_entry(timed: dict, launches: dict) -> dict:
                 events_ms={k: row[k]["events_ms"]
                            for k in ("ms", "plain_ms", "before_ms", "library_ms")},
                 shape=row["shape"], request=timed["gowalla-serve"],
+                launches_by_phase=launches)
+
+
+def gather_rows_inputs(cell: str, dev):
+    """(ids, rows) of a training cell's table gathers: BERT4Rec's batch of
+    256 sequences of 200 (27,700 PAD ids, 4,300 MASK ids, the rest Zipf
+    1.1 over the 26,744 items) into 26,746 rows; Gowalla's BPR batch, the
+    items' 131,072 Zipf 1.1 positives and 131,072 uniform negatives into
+    40,981 rows, and its 131,072 users into 29,858."""
+    rng = np.random.default_rng(SEED + 22)
+
+    def zipf(n, rows, first=0):
+        p = np.arange(1, rows - first + 1, dtype=np.float64) ** -1.1
+        return first + rng.choice(rows - first, size=n, p=p / p.sum())
+
+    if cell == "bert4rec-ml20m-train":
+        rows = 26746
+        ids = np.concatenate([np.zeros(27700, np.int64), np.full(4300, rows - 1),
+                              zipf(51200 - 32000, rows - 1, first=1)])
+        ids = rng.permutation(ids).reshape(256, 200)
+    elif cell == "gowalla-train items":
+        rows = 40981
+        ids = np.concatenate([zipf(131072, rows), rng.integers(0, rows, 131072)])
+    else:
+        rows = 29858
+        ids = rng.integers(0, rows, 131072)
+    return torch.from_numpy(ids).to(dev), rows
+
+
+def time_gather_rows_grad(dev) -> dict:
+    """The table gathers' backward kernel (``csrc/gather_rows_grad.cu``
+    through `ops/gather.py::gather_rows_grad`, the ids' sort included) at
+    the training cells' shapes, d 64 fp32: one launch a call, within
+    fp32's summation bound of a float64 ``index_add_``, two calls bitwise
+    equal; then device ms a call beside its byte bound (each gradient
+    row and id read once, each table row written once), its kernels apart
+    (the sort's and the kernel's own), the plain version (``index_put_``
+    with accumulation, the backward the port took before), and
+    ``F.embedding``'s dense backward (a yardstick the port never
+    calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsrs_tpu_torch.ops import gather
+
+    out = {}
+    for cell in ("bert4rec-ml20m-train", "gowalla-train items", "gowalla-train users"):
+        ids, rows = gather_rows_inputs(cell, dev)
+        d = 64
+        g = torch.randn(*ids.shape, d, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
+        before = dict(gather.LAUNCHES)
+        got = gather.gather_rows_grad(g, ids, rows)
+        check_gather_rows_grad({k: n - before[k] for k, n in gather.LAUNCHES.items()}, 1,
+                               f"gather_rows_grad at {cell}'s shape")
+        flat = ids.reshape(-1)
+        ref = torch.zeros(rows, d, dtype=torch.float64, device=dev).index_add_(
+            0, flat, g.reshape(-1, d).double())
+        mag = torch.zeros_like(ref).index_add_(0, flat, g.reshape(-1, d).double().abs())
+        count = torch.bincount(flat, minlength=rows).double()[:, None]
+        err = (got.double() - ref).abs()
+        check(bool((err <= (count + 1) * 2.0**-24 * mag).all()),
+              f"gather_rows_grad at {cell}'s shape: off a float64 index_add_ by "
+              f"{err.max().item():.3g}, past fp32's summation bound")
+        check(bitwise_equal(got, gather.gather_rows_grad(g, ids, rows)),
+              f"gather_rows_grad at {cell}'s shape: two calls differ")
+        n = ids.numel()
+        b_ms, b_by = roofline(4 * n * d + ids.element_size() * n + 4 * rows * d, n * d)
+        t = {name: kernel_ms(fn, reps, f"gather_rows_grad {cell} {name}") for name, fn, reps in (
+            ("ms", lambda: gather.gather_rows_grad(g, ids, rows), 50),
+            ("plain_ms", lambda: gather.gather_rows_grad_plain(g, ids, rows), 10),
+            ("library_ms", lambda: torch.ops.aten.embedding_dense_backward(
+                g.reshape(-1, d), flat, rows, -1, False), 10))}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                gather.gather_rows_grad(g, ids, rows)
+            torch.cuda.synchronize()
+        parts = {key[:80]: us / 10 for key, us, _ in device_rows(prof)}
+        row = dict(ids=n, rows=rows, d=d, bound_ms=b_ms, bound_by=b_by,
+                   roofline=b_ms / t["ms"]["ms"], max_abs_err=err.max().item(),
+                   kernels_us=parts, **t)
+        log(f"[time] gather_rows_grad at {cell}'s shape ({n} ids into {rows} rows, d {d}): "
+            f"{t['ms']['ms'] * 1e3:.1f} us ({100 * row['roofline']:.1f}% of its bound "
+            f"{b_ms * 1e3:.1f} us, {b_by}), plain {t['plain_ms']['ms'] * 1e3:.1f} us, "
+            f"F.embedding's backward {t['library_ms']['ms'] * 1e3:.1f} us; by kernel "
+            f"{ {k: round(v, 1) for k, v in parts.items()} } us; max error "
+            f"{row['max_abs_err']:.3g}, two calls bitwise equal")
+        out[cell] = row
+    return out
+
+
+def gather_rows_entry(timed: dict, launches: dict) -> dict:
+    """The gather kernel's row of the ``{"kernels": ...}`` line: its times
+    at BERT4Rec's batch (`time_gather_rows_grad`), Gowalla's two tables
+    beside them, and its launches on the main paths, by phase."""
+    row = timed["bert4rec-ml20m-train"]
+    return dict(name="gather_rows_grad", route="cuda", source=SOURCES["gather_rows_grad"],
+                replaces=REPLACES["gather_rows_grad"], launches=sum(launches.values()),
+                max_abs_err=row["max_abs_err"], ms=row["ms"]["ms"],
+                plain_ms=row["plain_ms"]["ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"]["ms"],
+                events_ms={k: row[k]["events_ms"] for k in ("ms", "plain_ms", "library_ms")},
+                shape=[row["ids"], row["rows"], row["d"]],
+                gowalla={k: v for k, v in timed.items() if k.startswith("gowalla")},
                 launches_by_phase=launches)
 
 
@@ -1427,6 +1551,7 @@ def training_phase(dev, data) -> dict:
     check(np.isfinite(loss0) and loss1 < loss0, f"epoch losses {loss0} -> {loss1} do not fall")
     check(launches["ell_gather_reduce"] >= 12 * steps_run,
           f"ell_gather_reduce launched {launches['ell_gather_reduce']} times in {steps_run} steps")
+    check_gather_rows_grad(launches, bpr_gathers(tr.model) * steps_run, "the training phase")
     # K3 once a step (⌈leaves/64⌉ launches) in the "pallas" steps: 3 warm-up and 2 x 20 timed
     # at 2048, 3 warm-up and two epochs at 8192
     pallas_steps = 2 * 3 + 2 * 20 + 2 * tr.steps_per_epoch
@@ -2097,6 +2222,7 @@ def tiled_phase(dev, data) -> dict:
     for side, n in tables.items():
         check(n >= model.cfg.num_layers * steps, f"K4 launched {n} times on the {side} side "
               f"in {steps} steps")
+    check_gather_rows_grad(launches, bpr_gathers(model) * steps, "the bench")
     k4_err = tiled_k4_checks(model)
 
     # ---- (f) one epoch under the profiler: device time by kernel per step
@@ -2391,7 +2517,8 @@ def cli_phase(dev, data, out_dir: str) -> dict:
                   for name, side in (("forward", tr4.model.i2i.ell.by_user),
                                      ("backward", tr4.model.i2i.ell.by_item)))
     main_launches = {k: launches[k] + l4[k] for k in ("masked_scores", "ell_gather_reduce",
-                                                      "fused_adam", "exact_topk")}
+                                                      "fused_adam", "exact_topk",
+                                                      "gather_rows_grad")}
     return dict(model=tr4.model, launches=main_launches,
                 sides={k: sides[k] + l4["sides"][k] for k in sides}, steps=steps,
                 steps_per_epoch=tr.steps_per_epoch, n_leaves=n_leaves, epoch_s=epoch_s,
@@ -2905,7 +3032,8 @@ def zoo_phase(dev, data, ell, out_dir: str) -> dict:
     vs_cpu = zoo_card_vs_cpu(dev)
     cli_runs = zoo_cli_runs(out_dir)
     launches = {k: sum(r["launches"][k] for r in cli_runs["runs"].values())
-                for k in ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk")}
+                for k in ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk",
+                          "gather_rows_grad")}
     return dict(segment=seg, hybrid=hyb, k1_d256=k1, card_vs_cpu=vs_cpu,
                 launches=launches, **cli_runs)
 
@@ -3153,6 +3281,10 @@ def seq_cli_runs(root: str) -> dict:
         check_exact_topk(launches, evals * n_batches, name)
         check(launches["ell_gather_reduce"] == launches["fused_adam"] == 0,
               f"{name}: K3/K4 launched on the seq path: {launches}")
+        # the loss's positives and negatives, and the transformers' input gather (GRU4Rec's
+        # input gather is its own)
+        check_gather_rows_grad(launches, SEQ_GATHERS[name] * SEQ_EPOCHS * tr.steps_per_epoch,
+                               name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.evaluate(state)
@@ -3308,7 +3440,7 @@ def seq_phase(dev, out_dir: str) -> dict:
     check(native is not None, "the native host sampler did not build")
     log(f"[seq] native host sampler built and loaded in {native_s:.2f} s")
     launches = {k: sum(r["launches"][k] for r in (*runs.values(), resume, serving))
-                for k in ("masked_scores", "exact_topk")}
+                for k in ("masked_scores", "exact_topk", "gather_rows_grad")}
     return dict(card_vs_cpu=vs_cpu, runs=runs, resume=resume, serving=serving, learning=learn, native_build_s=native_s,
                 launches=launches)
 
@@ -4861,6 +4993,7 @@ def main() -> int:
     errs.update(phase("kernels_train", kernel_phase_train, dev, data))
     ties = phase("topk_ties", exact_tie_check, dev)
     ties["kernel"] = phase("exact_topk", time_exact_topk, dev)
+    grad_rows = phase("gather_rows_grad", time_gather_rows_grad, dev)
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     serve = phase("serving", serving_phase, dev, GOWALLA_SHAPE, out_dir)
     train = phase("training", training_phase, dev, data)
@@ -4932,6 +5065,11 @@ def main() -> int:
         "serving": serve["launches"]["exact_topk"], "eval": ev["launches"]["exact_topk"],
         "cli": cli["launches"]["exact_topk"], "zoo": zoo["launches"]["exact_topk"],
         "seq": seq["launches"]["exact_topk"]}))
+    kernels.append(gather_rows_entry(grad_rows, {
+        "training": train["launches"]["gather_rows_grad"],
+        "bench": tiled["launches"]["gather_rows_grad"],
+        "cli": cli["launches"]["gather_rows_grad"], "zoo": zoo["launches"]["gather_rows_grad"],
+        "seq": seq["launches"]["gather_rows_grad"]}))
     # the mesh phase's launches, summed over its ranks (K2 is off the mesh path)
     for k in kernels:
         k["launches_mesh"] = mesh["launches"].get(k["name"], 0)

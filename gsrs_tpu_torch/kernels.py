@@ -84,11 +84,11 @@ def load_library(name: str) -> ctypes.CDLL:
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count, by kernel name (each wrapper
     adds one where it launches its kernel, and nowhere else)."""
-    from gsrs_tpu_torch.ops import ell_kernel, scoring, topk
+    from gsrs_tpu_torch.ops import ell_kernel, gather, scoring, topk
     from gsrs_tpu_torch.train import fused_adam
 
     return {k: n for c in (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES,
-                           topk.LAUNCHES)
+                           topk.LAUNCHES, gather.LAUNCHES)
             for k, n in c.items()}
 
 

@@ -42,6 +42,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from gsrs_tpu_torch.ops.gather import gather_rows, gather_rows_cat
 from gsrs_tpu_torch.ops.linalg import fp32_reduction
 
 Params = Dict[str, torch.Tensor]
@@ -141,7 +142,7 @@ def encode_transformer(
         return t if masks is None else apply_dropout(t, next(masks), dropout_rate)
 
     pad_mask = (seqs != 0)[:, :, None]
-    x = params["item_emb"][seqs]
+    x = gather_rows(params["item_emb"], seqs)
     if not post_ln:
         x = x * math.sqrt(d)
     x = x + params["pos_emb"][None, :, :]
@@ -186,8 +187,7 @@ def next_item_bpr(h: torch.Tensor, item_emb: torch.Tensor, pos: torch.Tensor,
     under ``weight`` (B, L), normalized by max(Σ weight, 1), and the L2
     term over every gathered row, PAD rows included, per sequence →
     (bpr, {"bpr", "reg"})."""
-    pe = item_emb[pos]
-    ne = item_emb[neg]
+    pe, ne = gather_rows_cat(item_emb, pos, neg)
     diff = (h * pe).sum(dim=-1) - (h * ne).sum(dim=-1)
     w = weight.float()
     bpr = -(torch.nn.functional.logsigmoid(diff) * w).sum() / torch.clamp(w.sum(), min=1.0)

@@ -34,6 +34,7 @@ from gsrs_tpu_torch.device import DeviceLike, resolve_device
 from gsrs_tpu_torch.ops.ell import (
     EllGraph, build_ell_graph, ell_from_graph, ell_propagate_layer, ell_spmm,
 )
+from gsrs_tpu_torch.ops.gather import gather_rows, gather_rows_cat
 from gsrs_tpu_torch.ops.hashdrop import hashdrop_from_generator
 from gsrs_tpu_torch.ops.hybrid import (
     HybridGraph, hybrid_from_graph, hybrid_masks, hybrid_propagate_layer,
@@ -302,14 +303,17 @@ class LightGCN(nn.Module):
         """BPR + reg (+ gate-entropy bonus) on propagated and fused
         embeddings. reg_mode 'ego' regularizes the batch's raw table rows,
         any other value (the default 'propagated') its propagated rows;
-        both 0.5·Σ‖·‖²/B."""
-        u, pe, ne = all_users[users], items[pos], items[neg]
+        both 0.5·Σ‖·‖²/B. Each table's rows are one gather (`gather_rows`:
+        one backward launch a table on the card)."""
+        u = gather_rows(all_users, users)
+        pe, ne = gather_rows_cat(items, pos, neg)
         pos_scores = (u * pe).sum(dim=1)
         neg_scores = (u * ne).sum(dim=1)
         bpr = -F.logsigmoid(pos_scores - neg_scores).mean()
         batch = users.shape[0]
         if self.cfg.reg_mode == "ego":
-            u, pe, ne = self.user_emb[users], self.item_emb[pos], self.item_emb[neg]
+            u = gather_rows(self.user_emb, users)
+            pe, ne = gather_rows_cat(self.item_emb, pos, neg)
         reg = 0.5 * ((u * u).sum() + (pe * pe).sum() + (ne * ne).sum()) / batch
         loss = bpr
         aux = {"bpr": bpr, "reg": reg}

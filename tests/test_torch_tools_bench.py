@@ -32,7 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
 METRIC_ATOL = 1e-6
 KERNELS = {"masked_scores", "masked_scores_bitplane", "ell_gather_reduce", "fused_adam",
-           "exact_topk", "exact_topk_plain"}
+           "exact_topk", "exact_topk_plain", "gather_rows_grad", "gather_rows_grad_plain"}
 TOOLS = ("eval_checkpoint", "bench_serving", "bench_eval", "visualize", "compute_ppr",
          "bench_spmm_modes", "bench_seq", "bench_scaling", "sweep_xsimgcl", "profile_epoch",
          "bench_scale_standin", "bench_seq_markov")
