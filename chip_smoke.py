@@ -62,11 +62,12 @@
    layer against the ELL layer, forward and VJP, in fp32 (within the ELL
    tolerance), in bf16 (within a limit counted from its bf16 roundings)
    and with a hash mask; 3 `run_steps` on the card and on the CPU over a
-   16 × 256 tiled layout in fp32 and bf16; then, counted, the port's bench
-   (`gsrs_tpu_torch.bench.run_bench`: bf16, batch 131072,
-   ``neg_candidates=4``, a warm-up and 3 timed epochs), which must launch
-   K4 on every residual and ``occ`` side; one epoch under torch.profiler,
-   and the device time of each K4 side and each grouped hub product. K4
+   16 × 256 tiled layout in fp32 and bf16; then, counted, one
+   `Trainer.train_epoch` of ``bench.py``'s configuration
+   (`gsrs_tpu_torch.bench.bench_config`: bf16, batch 131072,
+   ``neg_candidates=4``; the benchmark's ``gowalla-train`` times it),
+   which must launch K4 on every residual and ``occ`` side; one epoch
+   under torch.profiler, and the device time of each K4 side and each grouped hub product. K4
    against its plain version on each of those six sides (fp32 and bf16,
    the residual without and with its hash mask), and each grouped product
    within one bf16 rounding of its fp32 result.
@@ -227,10 +228,12 @@
    epoch and per eval, peak device memory, and the device's busy share
    during requests and train steps (torch.profiler).
 
-Each phase zeroes every kernel's launch counter just before it drives its
-path and fails unless the kernels of that path launched. Prints
-``{"kernels": [...]}`` on the line before the last and, as the last line,
-``{"ok": true, "device": {...}}``. Any failed check raises and the script
+Each phase counts every kernel's launches from just before it drives its
+path (`gsrs_tpu_torch.kernels.launch_counts`) and fails unless the
+kernels of that path launched. Every bound is a least time by
+``benchmark/counts/``: the card's peaks (`peaks.least_s`), and K3's and
+K4's counts. Prints ``{"kernels": [...]}`` on the line before the last
+and, as the last line, ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero; without a CUDA card it exits 2 and prints no result. It
 imports nothing of JAX or of the JAX package.
 """
@@ -250,6 +253,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from benchmark.counts.kernels import k3_least_s, k4_least_s
+from benchmark.counts.peaks import least_s
+from gsrs_tpu_torch.kernels import (
+    CSRC_DIR, KERNELS, build_kernels, launch_counts, launches_since, library_path,
+)
 
 SEED = 2020
 GOWALLA_SHAPE = dict(n_users=29858, m_items=40981, avg_degree=27)
@@ -368,20 +377,7 @@ SEQ_LIMITS = {
     "fp32": dict(loss=1e-5, grad=1e-5, params=SEQ_PARAM_ATOL, share_over=0.0),
     "bf16": dict(loss=2.0**-8, grad=2.0**-6, params=6e-3, share_over=0.2),
 }
-# published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
 L2_BYTES = 50 * 2**20  # the H100's L2: a timing meant to read HBM cycles through more
-KERNELS = ("masked_scores", "ell_gather_reduce", "fused_adam", "exact_topk", "gather_rows_grad")
-SOURCES = {
-    "masked_scores": "gsrs_tpu_torch/csrc/masked_scores.cu",
-    "masked_scores_bitplane": "gsrs_tpu_torch/csrc/masked_scores.cu",
-    "ell_gather_reduce": "gsrs_tpu_torch/csrc/ell_gather_reduce.cu",
-    "fused_adam": "gsrs_tpu_torch/csrc/fused_adam.cu",
-    "exact_topk": "gsrs_tpu_torch/csrc/exact_topk.cu",
-    "gather_rows_grad": "gsrs_tpu_torch/csrc/gather_rows_grad.cu",
-}
 REPLACES = {
     "masked_scores": "gsrs_tpu/ops/pallas_kernels.py:65",
     "masked_scores_bitplane": "gsrs_tpu/ops/pallas_kernels.py:190",
@@ -580,55 +576,42 @@ def timed_over_bound(fn, reps: int, what: str, events: int,
     return t
 
 
-def roofline(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    fp32 operations over the peak rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+def least_ms(flops: float, nbytes: float, dtype: str = "float32"):
+    """`benchmark.counts.peaks.least_s` in ms → (ms, "flops" | "bytes")."""
+    s, by = least_s(flops, nbytes, dtype)
+    return 1e3 * s, by
 
 
-def bound(B: int, d: int, m: int, W: int):
-    """(bound_ms, bound_by) of one masked-scoring call on (B, d) users,
-    (m, d) items and (B, W) bitset words: inputs read once, the (B, m)
-    output written once, 2·B·m·d fp32 operations."""
-    return roofline(4 * (B * d + m * d + B * W + B * m), 2 * B * m * d)
+def k1_least_ms(B: int, d: int, m: int, W: int):
+    """(ms, bound by) of one masked-scoring call on (B, d) users, (m, d)
+    items and (B, W) bitset words: 2·B·m·d fp32 operations, the inputs
+    read once and the (B, m) scores written once (K1 writes them; the
+    benchmark's `k1_least_s`, which counts a top-k fused into K1, does
+    not)."""
+    return least_ms(2.0 * B * m * d, 4.0 * (B * d + m * d + B * W + B * m))
 
 
-def counters():
-    """Every kernel wrapper's launch-count dict."""
-    from gsrs_tpu_torch.ops import ell_kernel, gather, scoring, topk
-    from gsrs_tpu_torch.train import fused_adam
-
-    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES, topk.LAUNCHES,
-            gather.LAUNCHES)
-
-
-def zero_counts() -> None:
-    for c in counters():
-        for name in c:
-            c[name] = 0
+def k4_least_ms(slots: int, x, n_rows: int):
+    """(ms, "bytes") of one K4 call of ``slots`` slots from the source rows
+    ``x`` into ``n_rows`` rows (`benchmark.counts.kernels.k4_least_s`): at
+    the widths timed here (d < 80) its 8 B a slot outlast its 2·d fp32
+    operations, so bytes bound it."""
+    return 1e3 * k4_least_s(slots, x.shape[0], n_rows, x.shape[1], x.element_size()), "bytes"
 
 
-def read_counts() -> dict:
-    return {name: n for c in counters() for name, n in c.items()}
+def source(name: str) -> str:
+    """The repository path of kernel ``name``'s source."""
+    return os.path.relpath(os.path.join(CSRC_DIR, f"{name}.cu"),
+                           os.path.dirname(os.path.abspath(__file__)))
 
 
-def check_exact_topk(launches: dict, calls: int, what: str) -> None:
-    """``what`` ranked by the exact top-k kernel, once a top-k call, and
-    never by the plain path (every caller hands it K1's contiguous fp32
-    scores)."""
-    check(launches["exact_topk"] == calls and launches["exact_topk_plain"] == 0,
-          f"{what}: exact_topk launched {launches['exact_topk']} times for {calls} top-k calls "
-          f"(the plain path {launches['exact_topk_plain']} times)")
-
-
-def check_gather_rows_grad(launches: dict, calls: int, what: str) -> None:
-    """``what``'s table gradients by the gather kernel, once a gather call
-    of each step (`gsrs_tpu_torch.ops.gather`), and never by its plain
-    version."""
-    check(launches["gather_rows_grad"] == calls and launches["gather_rows_grad_plain"] == 0,
-          f"{what}: gather_rows_grad launched {launches['gather_rows_grad']} times for {calls} "
-          f"gathers (the plain version {launches['gather_rows_grad_plain']} times)")
+def check_launched(launches: dict, name: str, calls: int, what: str) -> None:
+    """``what`` launched kernel ``name`` ``calls`` times, and its plain
+    version (``<name>_plain``, where the wrapper counts one) never."""
+    plain = launches.get(f"{name}_plain", 0)
+    check(launches[name] == calls and plain == 0,
+          f"{what}: {name} launched {launches[name]} times for {calls} calls (the plain "
+          f"version {plain} times)")
 
 
 def bpr_gathers(model) -> int:
@@ -881,15 +864,14 @@ def time_exact_topk(dev) -> dict:
     out = {}
     for cell, (B, m, k) in EXACT_TOPK_SHAPES.items():
         x = exact_topk_inputs(B, m, k, g, dev)
-        before = dict(topk.LAUNCHES)
+        before = launch_counts()
         got = topk.exact_topk(x, k)
-        check_exact_topk({name: n - before[name] for name, n in topk.LAUNCHES.items()}, 1,
-                         f"exact_topk at {cell}'s shape")
+        check_launched(launches_since(before), "exact_topk", 1, f"exact_topk at {cell}'s shape")
         for name, want in (("stable_topk", topk.stable_topk(x, k)),
                            ("its plain version", topk.exact_topk_reference(x, k))):
             check(bitwise_equal(got[0], want[0]) and bitwise_equal(got[1], want[1]),
                   f"exact_topk at {cell}'s shape differs from {name}")
-        b_ms, b_by = roofline(4 * B * m, 0)
+        b_ms, b_by = least_ms(0, 4 * B * m)
         t = {name: kernel_ms(fn, reps, f"exact_topk {cell} {name}") for name, fn, reps in (
             ("ms", lambda: topk.exact_topk(x, k), 50),
             ("plain_ms", lambda: topk.exact_topk_reference(x, k), 10),
@@ -912,7 +894,7 @@ def exact_topk_entry(timed: dict, launches: dict) -> dict:
     times at the amazon-book eval batch (`time_exact_topk`), the Gowalla
     request's beside them, and its launches on the main paths, by phase."""
     row = timed["amazon-book-eval"]
-    return dict(name="exact_topk", route="cuda", source=SOURCES["exact_topk"],
+    return dict(name="exact_topk", route="cuda", source=source("exact_topk"),
                 replaces=REPLACES["exact_topk"], launches=sum(launches.values()),
                 max_abs_err=0.0, ms=row["ms"]["ms"], plain_ms=row["plain_ms"]["ms"],
                 before_ms=row["before_ms"]["ms"], bound_ms=row["bound_ms"],
@@ -969,10 +951,10 @@ def time_gather_rows_grad(dev) -> dict:
         ids, rows = gather_rows_inputs(cell, dev)
         d = 64
         g = torch.randn(*ids.shape, d, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
-        before = dict(gather.LAUNCHES)
+        before = launch_counts()
         got = gather.gather_rows_grad(g, ids, rows)
-        check_gather_rows_grad({k: n - before[k] for k, n in gather.LAUNCHES.items()}, 1,
-                               f"gather_rows_grad at {cell}'s shape")
+        check_launched(launches_since(before), "gather_rows_grad", 1,
+                       f"gather_rows_grad at {cell}'s shape")
         flat = ids.reshape(-1)
         ref = torch.zeros(rows, d, dtype=torch.float64, device=dev).index_add_(
             0, flat, g.reshape(-1, d).double())
@@ -985,7 +967,7 @@ def time_gather_rows_grad(dev) -> dict:
         check(bitwise_equal(got, gather.gather_rows_grad(g, ids, rows)),
               f"gather_rows_grad at {cell}'s shape: two calls differ")
         n = ids.numel()
-        b_ms, b_by = roofline(4 * n * d + ids.element_size() * n + 4 * rows * d, n * d)
+        b_ms, b_by = least_ms(n * d, 4 * n * d + ids.element_size() * n + 4 * rows * d)
         t = {name: kernel_ms(fn, reps, f"gather_rows_grad {cell} {name}") for name, fn, reps in (
             ("ms", lambda: gather.gather_rows_grad(g, ids, rows), 50),
             ("plain_ms", lambda: gather.gather_rows_grad_plain(g, ids, rows), 10),
@@ -1015,7 +997,7 @@ def gather_rows_entry(timed: dict, launches: dict) -> dict:
     at BERT4Rec's batch (`time_gather_rows_grad`), Gowalla's two tables
     beside them, and its launches on the main paths, by phase."""
     row = timed["bert4rec-ml20m-train"]
-    return dict(name="gather_rows_grad", route="cuda", source=SOURCES["gather_rows_grad"],
+    return dict(name="gather_rows_grad", route="cuda", source=source("gather_rows_grad"),
                 replaces=REPLACES["gather_rows_grad"], launches=sum(launches.values()),
                 max_abs_err=row["max_abs_err"], ms=row["ms"]["ms"],
                 plain_ms=row["plain_ms"]["ms"], bound_ms=row["bound_ms"],
@@ -1061,7 +1043,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
     log(f"[serve] data {data.n_users} users x {data.m_items} items, {data.train_size} edges")
 
     # ---- the main path, counted: graph → model → propagation → retriever → requests
-    zero_counts()
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     graph = build_graph(data)
@@ -1078,14 +1060,15 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
                          batch_size=BATCH, use_pallas_scoring="on", device=dev)
     planes = [bitplane.recommend(b, k=K) for b in batches]
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = launches_since(before)
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     log(f"[serve] graph+ELL build {t_graph:.3f} s, retriever_from_model {t_retriever:.3f} s, "
         f"launches {launches}")
     for name in scoring.LAUNCHES:
         check(launches[name] >= N_REQUESTS, f"{name} launched {launches[name]} times on the "
               "serving path")
-    check_exact_topk(launches, 2 * N_REQUESTS, "the serving path, natural and bit-plane")
+    check_launched(launches, "exact_topk", 2 * N_REQUESTS,
+                   "the serving path, natural and bit-plane")
     check(launches["ell_gather_reduce"] >= 2 * model.cfg.num_layers,
           "the propagation did not run through ell_gather_reduce")
 
@@ -1153,9 +1136,9 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
             ("plain_ms", lambda: masked_scores_reference(u, it, bits, bitplane=flag), 50),
             ("library_ms", lambda: torch.matmul(u, it.T), 200))}
         ms, plain_ms, library_ms = (t[k]["ms"] for k in ("ms", "plain_ms", "library_ms"))
-        b_ms, b_by = bound(u.shape[0], d, it.shape[0], bits.shape[1])
+        b_ms, b_by = k1_least_ms(u.shape[0], d, it.shape[0], bits.shape[1])
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            name=name, route="cuda", source=source("masked_scores"), replaces=REPLACES[name],
             launches=launches[name], max_abs_err=None, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             events_ms={k: v["events_ms"] for k, v in t.items()},
@@ -1168,7 +1151,7 @@ def serving_phase(dev: torch.device, shape: dict, out_dir: str) -> dict:
     eval_ms = kernel_ms(lambda: scoring.masked_scores(u_eval, ie, bits_eval), 50,
                         "masked_scores B=2048")["ms"]
     eval_lib_ms = kernel_ms(lambda: torch.matmul(u_eval, ie.T), 50, "torch.matmul B=2048")["ms"]
-    b_ms, b_by = bound(2048, d, ie.shape[0], bits_eval.shape[1])
+    b_ms, b_by = k1_least_ms(2048, d, ie.shape[0], bits_eval.shape[1])
     log(f"[time] masked_scores at the eval batch (2048 users): {eval_ms * 1e3:.1f} us, bound "
         f"{b_ms * 1e3:.1f} us ({b_by}), torch.matmul {eval_lib_ms * 1e3:.1f} us")
     kernels[0]["eval_batch"] = dict(B=2048, ms=eval_ms, bound_ms=b_ms, library_ms=eval_lib_ms)
@@ -1510,7 +1493,7 @@ def training_phase(dev, data) -> dict:
     graph, ell = build_graph(data), ell_from_interactions(data)
     log(f"[train] data {data.n_users} users x {data.m_items} items, {data.train_size} train "
         f"edges, {len(data.test_dict)} test users")
-    zero_counts()
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     model = None
     trainers, states = {}, {}
@@ -1543,7 +1526,7 @@ def training_phase(dev, data) -> dict:
     state, loss1 = tr.train_epoch(state)
     steps_run += tr.steps_per_epoch
     ms[(8192, "pallas")] = [1e3 * epoch_s / tr.steps_per_epoch]
-    launches = read_counts()
+    launches = launches_since(before)
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     log(f"[train] batch 8192 fused_adam=pallas: one epoch of {tr.steps_per_epoch} steps in "
         f"{epoch_s:.3f} s ({ms[(8192, 'pallas')][0]:.3f} ms/step); epoch losses {loss0:.5f} -> "
@@ -1551,7 +1534,8 @@ def training_phase(dev, data) -> dict:
     check(np.isfinite(loss0) and loss1 < loss0, f"epoch losses {loss0} -> {loss1} do not fall")
     check(launches["ell_gather_reduce"] >= 12 * steps_run,
           f"ell_gather_reduce launched {launches['ell_gather_reduce']} times in {steps_run} steps")
-    check_gather_rows_grad(launches, bpr_gathers(tr.model) * steps_run, "the training phase")
+    check_launched(launches, "gather_rows_grad", bpr_gathers(tr.model) * steps_run,
+                   "the training phase")
     # K3 once a step (⌈leaves/64⌉ launches) in the "pallas" steps: 3 warm-up and 2 x 20 timed
     # at 2048, 3 warm-up and two epochs at 8192
     pallas_steps = 2 * 3 + 2 * 20 + 2 * tr.steps_per_epoch
@@ -1602,15 +1586,15 @@ def eval_phase(dev, train: dict) -> dict:
     from gsrs_tpu_torch.train.evaluator import Evaluator
 
     tr, state = train["trainer"], train["state"]
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = tr.evaluate(state)
     eval_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launches_since(before)
     check(launches["masked_scores"] >= 1, "the eval did not score through masked_scores")
     check(launches["ell_gather_reduce"] >= 2 * 3, "the eval did not propagate through K4")
-    check_exact_topk(launches, tr.evaluator._users.shape[0], "the eval")
+    check_launched(launches, "exact_topk", tr.evaluator._users.shape[0], "the eval")
     t0 = time.perf_counter()
     tr.evaluate(state)
     eval2_s = time.perf_counter() - t0
@@ -1734,10 +1718,8 @@ def time_ell_side(name: str, table, x, csr) -> dict:
 
     slots = sum(c.numel() for c, _, _ in table.buckets)
     nnz = csr.values().numel()
-    # (col, weight) of each real edge, x read once, the output written once
-    io = x.element_size() * (x.numel() + table.n_rows * d)
-    b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * d)
-    b_slots_ms, _ = roofline(8 * slots + io, 2 * nnz * d)
+    b_ms, b_by = k4_least_ms(nnz, x, table.n_rows)
+    b_slots_ms, _ = k4_least_ms(slots, x, table.n_rows)
     n_split = sum(work.splits.shape[0] for _, work in table._tables)
     timed = {k: kernel_ms(fn, reps, f"ell_gather_reduce {name} {k}", warmup)
              for k, fn, reps, warmup in (
@@ -1784,7 +1766,7 @@ def time_ell(model, launches: int, per_step: float, err: float) -> dict:
                                      f"ell_gather_reduce by_item S={split}", warmup=100)["ms"]
         log("[time] ell_gather_reduce by_item at split length S: " + ", ".join(
             f"S={k} {v * 1e3:.1f} us" for k, v in sweep.items()))
-    return dict(name="ell_gather_reduce", route="cuda", source=SOURCES["ell_gather_reduce"],
+    return dict(name="ell_gather_reduce", route="cuda", source=source("ell_gather_reduce"),
                 replaces=REPLACES["ell_gather_reduce"], launches=launches, max_abs_err=err,
                 bound_by="/".join(sorted(bound_by)), launches_per_step=per_step,
                 shape=[int(model.n_users), int(model.m_items), d], sides=sides,
@@ -1823,7 +1805,7 @@ def time_adam_leaves(dev, what: str, spec) -> dict:
         for p, m, v, g in next(sets):
             _adam_math_(p, m, v, g, lr, c1, c2, *consts)
 
-    bound_ms = roofline(sum(7 * n * e for n, e in sizes), 12 * sum(n for n, _ in sizes))[0]
+    bound_ms = 1e3 * k3_least_s(sizes)
     t = adam_step_times(dev, spec, bound_ms=bound_ms)
     per_step = -(-len(spec) // MAX_LEAVES)
     check(t["launches"] == per_step, f"fused_adam {what}: {t['launches']} launches in a "
@@ -1868,7 +1850,7 @@ def time_adam(model, cli_model, launches: int, per_step: float, err: float,
     in_step = "not measured" if in_step_ms is None else f"{in_step_ms * 1e3:.1f} us"
     log(f"[time] fused_adam inside a train step: {in_step} (one launch a step); PR 6's "
         "one-launch-a-leaf kernel took 77.0 us over NGCF's 14 leaves (PERF.md)")
-    return dict(name="fused_adam", route="cuda", source=SOURCES["fused_adam"],
+    return dict(name="fused_adam", route="cuda", source=source("fused_adam"),
                 replaces=REPLACES["fused_adam"], launches=launches, max_abs_err=err,
                 bound_by="bytes", launches_per_step=per_step, in_step_ms=in_step_ms,
                 shape=[int(model.n_users) + int(model.m_items), int(model.cfg.embedding_dim)],
@@ -2131,8 +2113,7 @@ def time_tiled(model) -> dict:
                                        ("occ", t.occ, hub)):
                 table = side.table
                 nnz = sum(int((b.w != 0).sum()) for b in side.buckets)
-                io = x.element_size() * (x.numel() + table.n_rows * d)
-                b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * d)
+                b_ms, b_by = k4_least_ms(nnz, x, table.n_rows)
                 out = x.new_empty(table.n_rows + 1, d)
                 k4 = kernel_ms(lambda: gather_reduce(table, x, out=out), 100,
                                f"tiled K4 {name} {side_name}")
@@ -2145,8 +2126,7 @@ def time_tiled(model) -> dict:
             dd = t.dense.view(G, rows_g, C)
             xg = x_src.index_select(0, t.top_src.reshape(-1)).reshape(G, C, d)
             gy = x_dst.index_select(0, t.row_nat).view(G, rows_g, d)
-            b_ms = 1e3 * max(dd.numel() * dd.element_size() / PEAK_BYTES_PER_S,
-                             2 * dd.numel() * d / PEAK_BF16_FLOPS)
+            b_ms = least_ms(2 * dd.numel() * d, dd.numel() * dd.element_size(), "bfloat16")[0]
             for kind, a, b in (("forward", dd, xg), ("transpose", dd.transpose(1, 2), gy)):
                 ms = kernel_ms(lambda: _hub_product(a, b), 100, f"tiled {name} bmm {kind}")
                 bmm[f"{name} {kind}"] = dict(ms=ms["ms"], events_ms=ms["events_ms"],
@@ -2171,15 +2151,17 @@ def time_tiled(model) -> dict:
 def tiled_phase(dev, data) -> dict:
     """The bench.py configuration: the tiled layout (G = 64 groups of
     C = 2048 hub columns, bf16) on the training data, (a) build seconds
-    and dense coverage, (b)-(c) layer checks, (d) card vs CPU, (e) the
-    bench through `gsrs_tpu_torch.bench.run_bench` (counted), (f) a
-    profiled epoch and per-call times."""
-    from gsrs_tpu_torch import bench
-    from gsrs_tpu_torch.data.adjacency import normalized_edge_weights
+    and dense coverage, (b)-(c) layer checks, (d) card vs CPU, (e) one
+    `Trainer.train_epoch` of `gsrs_tpu_torch.bench.bench_config`
+    (counted), (f) a profiled epoch and per-call times."""
+    from gsrs_tpu_torch.bench import bench_config
+    from gsrs_tpu_torch.data.adjacency import build_graph, normalized_edge_weights
+    from gsrs_tpu_torch.models.registry import build_model
     from gsrs_tpu_torch.ops.ell import ell_from_interactions
     from gsrs_tpu_torch.ops.reorder import spectral_cluster_order
     from gsrs_tpu_torch.ops.sampling import sample_epoch
-    from gsrs_tpu_torch.ops.tiled import _build_tiled_graph
+    from gsrs_tpu_torch.ops.tiled import _build_tiled_graph, tiled_from_interactions
+    from gsrs_tpu_torch.train.trainer import Trainer
 
     users, items = data.train_users.astype(np.int64), data.train_items.astype(np.int64)
     w = normalized_edge_weights(users, items, data.user_degrees, data.item_degrees)
@@ -2200,29 +2182,33 @@ def tiled_phase(dev, data) -> dict:
     del t32
     card_vs_cpu = tiled_card_vs_cpu(dev, data, orders)
 
-    # ---- the main path, counted: bench.py's configuration through the port's bench
-    zero_counts()
+    # ---- the main path, counted: one epoch of bench.py's configuration (gowalla-train times it)
+    cfg = bench_config()
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    out = bench.run_bench(dev, data)
-    launches = read_counts()
+    graph = build_graph(data)
+    layout = tiled_from_interactions(data, groups=cfg.model.tiled_groups,
+                                     cols=cfg.model.tiled_cols, dtype=torch.bfloat16)
+    model = build_model(cfg.model, graph, ell=layout, device=dev)
+    tr = Trainer(cfg, data, graph, model, run_eval=False, device=dev)
+    state, loss = tr.train_epoch(tr.init_state())
+    launches = launches_since(before)
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
-    tr, model = out["trainer"], out["trainer"].model
-    steps = (1 + bench.N_TIMED_EPOCHS) * out["steps_per_epoch"]
+    steps = tr.steps_per_epoch
     tables = {}
     for name in ("user_from_item", "item_from_user"):
         t = getattr(model.ell, name)
         for side_name, side in (("residual fwd", t.residual.by_user),
                                 ("residual bwd", t.residual.by_item), ("occ", t.occ)):
             tables[f"{name} {side_name}"] = side.table.launches
-    log(f"[tiled] bench: {out['epoch_s']:.4f} s/epoch ({out['steps_per_epoch']} steps of "
-        f"{tr.cfg.train.batch_size}), warm-up epoch {out['warmup_s']:.2f} s, graph + layout build "
-        f"{out['build_s']:.2f} s; epoch losses {out['losses']}; {steps} steps; launches "
-        f"{launches}; K4 calls by side {tables}; peak device memory {peak_mib:.1f} MiB")
-    check(all(np.isfinite(out["losses"])), f"bench losses {out['losses']}")
+    log(f"[tiled] bench.py's configuration: one epoch of {steps} steps of "
+        f"{tr.cfg.train.batch_size}, loss {loss:.5f}; launches {launches}; K4 calls by side "
+        f"{tables}; peak device memory {peak_mib:.1f} MiB")
+    check(np.isfinite(loss), f"bench.py's configuration: epoch loss {loss}")
     for side, n in tables.items():
         check(n >= model.cfg.num_layers * steps, f"K4 launched {n} times on the {side} side "
               f"in {steps} steps")
-    check_gather_rows_grad(launches, bpr_gathers(model) * steps, "the bench")
+    check_launched(launches, "gather_rows_grad", bpr_gathers(model) * steps, "the bench")
     k4_err = tiled_k4_checks(model)
 
     # ---- (f) one epoch under the profiler: device time by kernel per step
@@ -2231,11 +2217,11 @@ def tiled_phase(dev, data) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out["state"], _ = tr.train_epoch(out["state"])
+        state, _ = tr.train_epoch(state)
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = device_rows(prof)
     device_us = sum(t for _, t, _ in rows)
-    n = out["steps_per_epoch"]
+    n = steps
     busy = device_us / wall_us
     log(f"[profile] bench epoch ({n} steps + sampling): {wall_us / n:.1f} us wall, "
         f"{device_us / n:.1f} us device per step (busy share {busy:.3f})")
@@ -2249,8 +2235,7 @@ def tiled_phase(dev, data) -> dict:
     log(f"[time] sampler, one epoch of {n} x {B} triplets: {sample_us:.1f} us device")
     times = time_tiled(model)
     return dict(order_s=order_s, layout_s=layout_s, coverage=coverage, checks=checks,
-                card_vs_cpu=card_vs_cpu, epoch_s=out["epoch_s"], losses=out["losses"],
-                build_s=out["build_s"], launches=launches, k4_calls_by_side=tables,
+                card_vs_cpu=card_vs_cpu, loss=loss, launches=launches, k4_calls_by_side=tables,
                 peak_mib=peak_mib, step_device_us=device_us / n, step_wall_us=wall_us / n,
                 busy=busy, sampler_epoch_us=sample_us, k4_err=k4_err,
                 profile_top=top, **times)
@@ -2310,13 +2295,13 @@ def cli_run(argv, what: str):
     seconds)."""
     from gsrs_tpu_torch import cli
 
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer, state = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(read_counts(), sides=side_launches(trainer.model))
+    launches = dict(launches_since(before), sides=side_launches(trainer.model))
     log(f"[cli] {what}: {wall:.2f} s, epoch {state.epoch}, launches {launches}")
     return trainer, state, launches, wall
 
@@ -2328,7 +2313,6 @@ def topk_method_checks(trainer) -> dict:
     bitwise exact's (both rank in ``lax.top_k``'s order); approx's recall
     of exact's top-20, averaged over the test users, at least the target
     less APPROX_SLACK. Each method's eval seconds, warm."""
-    from gsrs_tpu_torch.kernels import launch_counts, launches_since
     from gsrs_tpu_torch.ops.scoring import masked_scores
     from gsrs_tpu_torch.ops.topk import topk_scores
     from gsrs_tpu_torch.train.evaluator import Evaluator
@@ -2344,8 +2328,9 @@ def topk_method_checks(trainer) -> dict:
         t0 = time.perf_counter()
         metrics[method] = ev.run()
         out["eval_s"][method] = time.perf_counter() - t0
-        check_exact_topk(launches_since(before), 2 * ev._users.shape[0] if method == "exact" else 0,
-                         f"two evals by {method} top-k")
+        check_launched(launches_since(before), "exact_topk",
+                       2 * ev._users.shape[0] if method == "exact" else 0,
+                       f"two evals by {method} top-k")
         tops[method] = ev.top_items()
     diff = max(abs(metrics["threshold"][k] - metrics["exact"][k]) for k in metrics["exact"])
     check(diff <= METRIC_ATOL, f"threshold vs exact metrics differ by {diff}")
@@ -2433,7 +2418,7 @@ def cli_phase(dev, data, out_dir: str) -> dict:
     check(launches["masked_scores"] == evals * n_batches,
           f"masked_scores launched {launches['masked_scores']} times for {evals} evals of "
           f"{n_batches} batches")
-    check_exact_topk(launches, 0, "the CLI run, approx top-k")
+    check_launched(launches, "exact_topk", 0, "the CLI run, approx top-k")
     layers = model.cfg.num_layers
     for side in ("user", "item"):  # each layer's forward and backward apply
         check(sides[side] >= 2 * layers * steps, f"K4 on the {side} side: {sides[side]}")
@@ -2456,7 +2441,7 @@ def cli_phase(dev, data, out_dir: str) -> dict:
     check(l4["fused_adam"] == adam_launches_per_step(model) * tr4.steps_per_epoch,
           f"the resumed run launched fused_adam {l4['fused_adam']} times, not once a step of "
           "one epoch")
-    check_exact_topk(l4, 0, "the resumed CLI run, approx top-k")
+    check_launched(l4, "exact_topk", 0, "the resumed CLI run, approx top-k")
     rows = csv_rows(os.path.join(ckpt, "train_epoch_metrics.csv"))
     check([r["epoch"] for r in rows] == ["1", "2", "3", "4"], f"train CSV after resume {rows}")
     rows = csv_rows(os.path.join(ckpt, "valid_epoch_metrics.csv"))  # epoch 3 evaluated again
@@ -2703,21 +2688,20 @@ def hybrid_checks(dev, data, ell) -> dict:
             out["layer_ms"][f"{dt} hash-masked"] = kernel_ms(
                 lambda: hybrid_propagate_layer(hgd, u, x, masks), 20,
                 f"hybrid layer {dt} masked")["ms"]
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
             for name, direction, x_src, x_dst in (
                     ("user_from_item", hgd.user_from_item, ins[1], ins[0]),
                     ("item_from_user", hgd.item_from_user, ins[0], ins[1])):
                 dense = direction.dense
                 n_dst, C = dense.shape
-                b_bytes = dense.numel() * dense.element_size() / PEAK_BYTES_PER_S
-                b_ops = 2 * n_dst * C * x_src.shape[1] / peak
+                b_ms, b_by = least_ms(2 * n_dst * C * x_src.shape[1],
+                                      dense.numel() * dense.element_size(),
+                                      str(dtype).removeprefix("torch."))
                 hub = x_src.index_select(0, direction.top_src)
                 for kind, a, b in (("forward", dense[None], hub[None]),
                                    ("transpose", dense.t()[None], x_dst[None])):
                     t = kernel_ms(lambda: _hub_product(a, b), 20, f"hybrid {name} {kind} {dt}")
                     out["dense"][f"{name} {kind} {dt}"] = dict(
-                        ms=t["ms"], events_ms=t["events_ms"], bound_ms=1e3 * max(b_bytes, b_ops),
-                        bound_by="bytes" if b_bytes >= b_ops else "operations",
+                        ms=t["ms"], events_ms=t["events_ms"], bound_ms=b_ms, bound_by=b_by,
                         shape=[n_dst, C, int(x_src.shape[1])])
                 if dtype != torch.float32:
                     continue
@@ -2727,8 +2711,7 @@ def hybrid_checks(dev, data, ell) -> dict:
                     what = f"ell_gather_reduce hybrid {name} {side_name}"
                     out["errors"][what] = ell_variants(side.table, xs, m, what)
                     nnz = sum(int((bk.w != 0).sum()) for bk in side.buckets)
-                    io = xs.element_size() * (xs.numel() + side.table.n_rows * xs.shape[1])
-                    b_ms, b_by = roofline(8 * nnz + io, 2 * nnz * xs.shape[1])
+                    b_ms, b_by = k4_least_ms(nnz, xs, side.table.n_rows)
                     o = xs.new_empty(side.table.n_rows + 1, xs.shape[1])
                     k4 = kernel_ms(lambda: gather_reduce(side.table, xs, out=o), 100, what)
                     apply = kernel_ms(lambda: _apply_side(side, xs), 100, f"{what} apply")
@@ -2810,7 +2793,7 @@ def zoo_cli_runs(root: str) -> dict:
         check(launches["masked_scores"] == 2 * n_batches,
               f"{name}: masked_scores launched {launches['masked_scores']} times for 2 evals of "
               f"{n_batches} batches")
-        check_exact_topk(launches, 2 * n_batches, name)
+        check_launched(launches, "exact_topk", 2 * n_batches, name)
         check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
               f"{name}: fused_adam launched {launches['fused_adam']} times for {n_leaves} leaves "
               f"in {steps} steps")
@@ -2871,18 +2854,18 @@ def profile_steps(tr, state, what: str, steps: int = 5) -> dict:
 
 
 def cli_run_counted(argv):
-    """`gsrs_tpu_torch.cli.main` with every launch count zeroed just
-    before and read just after; the counts and seconds ride on the
-    returned trainer."""
+    """`gsrs_tpu_torch.cli.main` with every kernel's launches counted
+    from just before it; the counts and seconds ride on the returned
+    trainer."""
     from gsrs_tpu_torch import cli
 
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer, state = cli.main(argv)
     torch.cuda.synchronize()
     trainer.zoo_wall = time.perf_counter() - t0
-    trainer.zoo_launches = dict(read_counts(), sides=layout_launches(trainer.model))
+    trainer.zoo_launches = dict(launches_since(before), sides=layout_launches(trainer.model))
     return trainer, state
 
 
@@ -3006,7 +2989,7 @@ def time_k1_at(dev, B: int, d: int, m: int, what: str, bitplane: bool = False,
     err = compare(masked_scores(u, it, bits, **kw), masked_scores_reference(u, it, bits, **kw),
                   f"{name} {what}")
     torch.cuda.empty_cache()
-    b_ms, b_by = bound(B, d, rows, W)
+    b_ms, b_by = k1_least_ms(B, d, rows, W)
     t = {k: kernel_ms(fn, reps, f"{name} {what} {k}")["ms"] for k, fn, reps in (
         ("ms", lambda: masked_scores(u, it, bits, **kw), 50),
         ("plain_ms", lambda: masked_scores_reference(u, it, bits, **kw), 10),
@@ -3224,13 +3207,13 @@ def seq_cli_run(argv, what: str):
     seconds)."""
     from gsrs_tpu_torch import seq_cli
 
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer, state = seq_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launches_since(before)
     log(f"[seq] {what}: {wall:.2f} s, epoch {state.epoch}, launches {launches}")
     return trainer, state, launches, wall
 
@@ -3278,13 +3261,13 @@ def seq_cli_runs(root: str) -> dict:
         check(launches["masked_scores"] == evals * n_batches,
               f"{name}: masked_scores launched {launches['masked_scores']} times for {evals} "
               f"evals of {n_batches} batches")
-        check_exact_topk(launches, evals * n_batches, name)
+        check_launched(launches, "exact_topk", evals * n_batches, name)
         check(launches["ell_gather_reduce"] == launches["fused_adam"] == 0,
               f"{name}: K3/K4 launched on the seq path: {launches}")
         # the loss's positives and negatives, and the transformers' input gather (GRU4Rec's
         # input gather is its own)
-        check_gather_rows_grad(launches, SEQ_GATHERS[name] * SEQ_EPOCHS * tr.steps_per_epoch,
-                               name)
+        check_launched(launches, "gather_rows_grad",
+                       SEQ_GATHERS[name] * SEQ_EPOCHS * tr.steps_per_epoch, name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.evaluate(state)
@@ -3321,7 +3304,7 @@ def seq_resume_check(first: dict) -> dict:
     n_batches = tr2._eval_seqs.shape[0]
     check(launches["masked_scores"] == 2 * n_batches,  # the eval at the resume epoch, the final
           f"the resumed run launched masked_scores {launches['masked_scores']} times")
-    check_exact_topk(launches, 2 * n_batches, "the resumed SASRec run")
+    check_launched(launches, "exact_topk", 2 * n_batches, "the resumed SASRec run")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s_full, _ = first["trainer"].train_epoch(first["state"])
@@ -3354,16 +3337,16 @@ def seq_serving(dev, ckpt: str, root: str) -> dict:
     r = serve_seq.load_seq_retriever(art)
     rng = np.random.default_rng(SEED)
     session = [int(i) for i in rng.choice(r.m_items, 12, replace=False)]
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, text = run_quiet(serve_seq.main, ["query", "--artifact", art, "--session",
                                          *map(str, session), "--k", str(K)])
     query_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launches_since(before)
     check(launches["masked_scores"] == 1, f"query launched masked_scores "
           f"{launches['masked_scores']} times")
-    check_exact_topk(launches, 1, "serve_seq query")
+    check_launched(launches, "exact_topk", 1, "serve_seq query")
     printed = [int(p.split(":")[0]) for p in text.strip().split(": ", 1)[1].split()]
     check(not set(printed) & set(session), "a session item came back")
     seqs, seen = r._encode_sessions([session])
@@ -3391,7 +3374,7 @@ def seq_serving(dev, ckpt: str, root: str) -> dict:
         with torch.no_grad():
             q = r.model.user_representations(torch.from_numpy(seqs).long().to(dev)).contiguous()
         items, rows = r.model.catalog(), bitset_to_tensor(seen, dev)
-        b_ms, b_by = bound(n, q.shape[1], items.shape[0], rows.shape[1])
+        b_ms, b_by = k1_least_ms(n, q.shape[1], items.shape[0], rows.shape[1])
         k1[n] = dict(bound_ms=b_ms, bound_by=b_by, **{key: kernel_ms(
             fn, reps, f"masked_scores B={n} (seq)")["ms"] for key, fn, reps in (
                 ("ms", lambda: masked_scores(q, items, rows), 100),
@@ -3486,7 +3469,6 @@ def hits_layouts(trainer, plain: torch.Tensor) -> dict:
     (``use_pallas_scoring="off"``) and the bit-plane layout ("on") over
     every test user: the same top-20 ids, boundary swaps aside, with K1
     launched on the natural side only and K2 on the bit-plane side only."""
-    from gsrs_tpu_torch.kernels import launch_counts, launches_since
     from gsrs_tpu_torch.serve import Retriever, retriever_from_model
 
     live = retriever_from_model(trainer.model, trainer.data, batch_size=BATCH)
@@ -3534,6 +3516,7 @@ def hits_phase(dev, out_dir: str) -> dict:
     write_cli_dataset(synthetic.clustered(**HITS_SHAPE, seed=SEED), data_dir)
     data_s = time.perf_counter() - t0
 
+    before = launch_counts()
     (tr, state), _, launches, run_s = counted(cli.main, hits_argv(out_dir))
     data, model = tr.data, tr.model
     chance = chance_recall(data, K)
@@ -3556,7 +3539,7 @@ def hits_phase(dev, out_dir: str) -> dict:
     check(launches["masked_scores"] == len(rows) * n_batches
           and launches["masked_scores_bitplane"] == 0,
           f"hits: K1/K2 launched {launches} for {len(rows)} evals of {n_batches} batches")
-    check_exact_topk(launches, len(rows) * n_batches, "hits")
+    check_launched(launches, "exact_topk", len(rows) * n_batches, "hits")
     for side in (model.ell.by_user, model.ell.by_item):  # each layer's forward and backward
         check(side.table.launches >= 2 * model.cfg.num_layers * steps,
               f"hits: K4 launched {side.table.launches} times on a side in {steps} steps")
@@ -3574,7 +3557,7 @@ def hits_phase(dev, out_dir: str) -> dict:
     check(methods["metrics"]["threshold"][f"recall@{K}"] >= floor,
           f"hits: threshold's recall@{K} {methods['metrics']['threshold']} < floor {floor}")
     layouts = hits_layouts(tr, vs_cpu.pop("plain_scores"))
-    phase_launches = read_counts()  # zeroed by `counted` before the run
+    phase_launches = launches_since(before)
     torch.cuda.empty_cache()
     return dict(dataset=data_dir, ckpt=ckpt, shape=HITS_SHAPE, train_edges=data.train_size,
                 test_users=len(data.test_dict), chance=chance, floor=floor, last=last,
@@ -3616,15 +3599,15 @@ MARKOV_MIN_VS_POPULARITY = 5.0
 
 
 def counted(fn, *args, **kw):
-    """``fn(*args, **kw)`` with every launch count zeroed just before and
-    read just after → (its result, its standard output, the launches,
+    """``fn(*args, **kw)`` with every kernel's launches counted from just
+    before it → (its result, its standard output, the launches,
     seconds)."""
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, text = run_quiet(fn, *args, **kw)
     torch.cuda.synchronize()
-    return out, text, read_counts(), time.perf_counter() - t0
+    return out, text, launches_since(before), time.perf_counter() - t0
 
 
 def tools_eval_checkpoint(root: str, hits_floor: float) -> dict:
@@ -4129,11 +4112,11 @@ def hits_on_mesh(device, root: str) -> dict:
                         device=device)
     trainer = Trainer(cfg, data, graph, model, device=device)
     state = trainer.resume_weights(trainer.init_state())
-    zero_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     metrics = trainer.evaluate(state)
     return dict(epoch=state.epoch, metrics=metrics, eval_s=time.perf_counter() - t0,
-                launches=read_counts())
+                launches=launches_since(before))
 
 
 def mesh_steps(model, cfg, mesh, builder, batches, generator_seed: int = SEED):
@@ -4404,11 +4387,11 @@ def _mesh_blocks(device, mesh, root: str, orders, batches) -> dict:
         whole = block_layout(name, data, orders)
         model = build_model(cfg.model, graph, None, whole, device=device)
         sh.place_model(model)
-        zero_counts()
+        before = launch_counts()
         losses, params, fn = mesh_steps(model, cfg, mesh, make_train_step, batches)
         torch.cuda.synchronize()
         r = dict(losses=losses, params=params if mesh.is_primary else None,
-                 launches=read_counts(),
+                 launches=launches_since(before),
                  sides={k: v.table.launches for k, v in block_sides(model.ell).items()},
                  dense_bytes=dense_bytes(model.ell), whole_dense_bytes=dense_bytes(whole),
                  adds_dense=[getattr(model.ell, k).adds_dense for k in MESH_DIRECTIONS])
@@ -4448,18 +4431,18 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
     out = {}
     ckpt = os.path.join(root, "mesh_ckpt")
     # the CLI at full width: MESH_STEPS steps, an eval before and after, a checkpoint
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first, first_state = cli.main(mesh_cli_argv(root, ckpt, 1, MESH_STEPS * MESH_BATCH), device)
     torch.cuda.synchronize()
     out["cli"] = dict(wall_s=time.perf_counter() - t0, epoch=first_state.epoch,
-                      launches=read_counts(), n_users=first.data.n_users,
+                      launches=launches_since(before), n_users=first.data.n_users,
                       m_items=first.data.m_items, steps=epoch_steps(first),
                       adam_per_step=adam_launches_per_step(first.model))
-    zero_counts()
+    before = launch_counts()
     trainer, state = cli.main(mesh_cli_argv(root, ckpt, 2, MESH_BATCH, resume=True), device)
-    out["resume"] = dict(epoch=state.epoch, launches=read_counts(),
+    out["resume"] = dict(epoch=state.epoch, launches=launches_since(before),
                          steps=epoch_steps(trainer))
     # the resumed run against the first run's trainer taking that epoch in memory
     first.epoch_samples = MESH_BATCH
@@ -4471,15 +4454,15 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
     mesh, model, cfg = trainer.mesh, trainer.model, trainer.cfg
     # the same batches through both step builders, from the seeded parameters; first the
     # control, whose step does not divide out the model-axis copies
-    zero_counts()
+    before = launch_counts()
     with mock.patch.object(dist_train, "local_share", lambda loss, mesh: loss / mesh.data_size):
         out["control_losses"] = mesh_steps(model, cfg, mesh, make_train_step, batches[:1])[0]
     for name, builder in (("gspmd", make_train_step), ("shard_map", make_shard_map_train_step)):
         losses, whole, fn = mesh_steps(model, cfg, mesh, builder, batches)
         out[name] = dict(losses=losses, params=whole if mesh.is_primary else None)
-    out["steps_launches"] = read_counts()
+    out["steps_launches"] = launches_since(before)
     # eval and serving on the parameters of the shard_map steps
-    zero_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     out["metrics"] = trainer.evaluate(state)
     out["eval_s"] = time.perf_counter() - t0
@@ -4487,7 +4470,7 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
                                      mesh=mesh)
     users = np.arange(N_REQUESTS * BATCH) * 7 % retriever.n_users
     out["top"] = retriever.recommend(users, k=K)
-    out["eval_serve_launches"] = read_counts()
+    out["eval_serve_launches"] = launches_since(before)
     out["hits"] = hits_on_mesh(device, root)
     # readings: the step's wall time, its collectives' share, each rank's kernels
     out.update(clocked_steps(fn, batches[0], device))
@@ -4508,7 +4491,7 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
     out["bf16_all_reduce"] = probe_bf16_all_reduce(mesh)
     out["blocks"] = _mesh_blocks(device, mesh, root, orders, block_batches)
     # SASRec through seq_cli on the same mesh
-    zero_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     seq_tr, seq_state = seq_cli.main(["--data_root", root, "--dataset", CLI_DATASET,
                                       "--checkpoint_dir", os.path.join(seq_root, "mesh"),
@@ -4516,7 +4499,7 @@ def _mesh_rank(device, root: str, batches, seq_root: str, orders, block_batches)
                                       str(MESH_AXES[1]), "--dist_backend", "gloo"]
                                      + MESH_SEQ_ARGS, device)
     torch.cuda.synchronize()
-    out["seq"] = dict(wall_s=time.perf_counter() - t0, launches=read_counts(),
+    out["seq"] = dict(wall_s=time.perf_counter() - t0, launches=launches_since(before),
                       rows=csv_rows(os.path.join(seq_root, "mesh", "valid_epoch_metrics.csv"))
                       if seq_tr.mesh.is_primary else None,
                       losses=csv_rows(os.path.join(seq_root, "mesh", "train_epoch_metrics.csv"))
@@ -4538,10 +4521,10 @@ def _nccl_rank(device, root: str, batches) -> dict:
     world = dist.group.WORLD
     mesh = Mesh(1, 1, 0, device, dist.get_backend(), world, world, world)
     GraphShardings(mesh).place_model(model)
-    zero_counts()
+    before = launch_counts()
     losses, whole, _ = mesh_steps(model, cfg, mesh, make_train_step, batches)
-    return dict(backend=dist.get_backend(), losses=losses, params=whole, launches=read_counts(),
-                bf16_all_reduce=probe_bf16_all_reduce(mesh))
+    return dict(backend=dist.get_backend(), losses=losses, params=whole,
+                launches=launches_since(before), bf16_all_reduce=probe_bf16_all_reduce(mesh))
 
 
 def block_references(dev, data, graph):
@@ -4897,13 +4880,13 @@ def stress_phase(dev) -> dict:
         built.append(_build(*a, **kw))
         return built[-1]
 
-    zero_counts()
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with mock.patch.object(registry, "build_model", keep_model):
         res, text = run_quiet(stress_pod.main, STRESS_RUN, device=dev)
     wall_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launches_since(before)
     check(text.rstrip().endswith("STRESS OK"), "the stress run did not print STRESS OK")
     for name in KERNELS:
         check(launches[name] > 0 and res["launches"][name] == launches[name],
@@ -4912,7 +4895,7 @@ def stress_phase(dev) -> dict:
     steps = 1 + stress_pod.build_parser().parse_args(STRESS_RUN).steps  # the first, then timed
     check(launches["fused_adam"] == adam_launches_per_step(model) * steps,
           f"the stress run launched fused_adam {launches['fused_adam']} times in {steps} steps")
-    check_exact_topk(launches, launches["masked_scores"], "the stress eval")
+    check_launched(launches, "exact_topk", launches["masked_scores"], "the stress eval")
     mem = res["memory"]
     log(f"[stress] {res['edges']} edges, 1M x 500k x 256 on one card: {wall_s:.1f} s, of it "
         f"the build and first step {res['build_s']} s; train step "
@@ -4944,8 +4927,8 @@ def stress_phase(dev) -> dict:
     check(small["launches"]["fused_adam"] == steps,  # LightGCN's two tables: one launch a step
           f"the stress smoke's rank 0 launched fused_adam {small['launches']['fused_adam']} "
           f"times in {steps} steps")
-    check_exact_topk(small["launches"], small["launches"]["masked_scores"],
-                     "the stress smoke's rank 0")
+    check_launched(small["launches"], "exact_topk", small["launches"]["masked_scores"],
+                   "the stress smoke's rank 0")
     log(f"[stress] --smoke on 4 gloo ranks: {smoke_s:.1f} s; rank 0's launches "
         f"{small['launches']}")
     return dict(plan={k: plan[k] for k in ("mesh", "fits", "min_model_axis_for_fit",
@@ -4961,7 +4944,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from gsrs_tpu_torch.device import resolve_device
-    from gsrs_tpu_torch.kernels import build_kernels, library_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4973,7 +4955,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    build_logs = build_kernels(KERNELS)
+    build_logs = build_kernels()
     log(f"[build] {time.perf_counter() - t0:.1f} s -> "
         f"{', '.join(library_path(k) for k in KERNELS)}")
     for name, text in build_logs.items():

@@ -2,12 +2,14 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library that `ctypes`
-loads. Libraries are built at first use, from the sources in the
-package only, into ``build/kernels/`` beside the package (a directory
-the repository's .gitignore lists), keyed by a hash of the source and
-the flags, so a changed source is rebuilt. `build_kernels` starts one
-``nvcc`` per source, all at once. Nothing is built when a module is
-imported: a CPU-only host never needs ``nvcc``."""
+loads. `KERNELS` names them all, read from ``csrc/``: a new ``.cu`` file
+there is a new kernel, with no list to edit. Libraries are built at
+first use, from the sources in the package only, into
+``build/kernels/`` beside the package (a directory the repository's
+.gitignore lists), keyed by a hash of the source and the flags, so a
+changed source is rebuilt. `build_kernels` starts one ``nvcc`` per
+source, all at once. Nothing is built when a module is imported: a
+CPU-only host never needs ``nvcc``."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+KERNELS = tuple(sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -46,9 +49,10 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build_kernels(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that has no current library, one
-    ``nvcc`` process each, all started together. → {name: compiler log}
+def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named source (by default every kernel) that has no
+    current library, one ``nvcc`` process each, all started together.
+    → {name: compiler log}
     (``-Xptxas=-v`` prints registers, shared memory and spills). Raises
     with the compiler's output when a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)

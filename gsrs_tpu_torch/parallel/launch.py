@@ -29,15 +29,13 @@ from gsrs_tpu_torch.parallel.mesh import (
     DEFAULT_TIMEOUT_S, choose_backend, init_process_group, rank_device,
 )
 
-KERNEL_SOURCES = ("masked_scores", "ell_gather_reduce", "fused_adam")
-
 
 def build_kernels_for(device_type: str) -> None:
     """Build every kernel library before the ranks start (CUDA only)."""
     if device_type == "cuda":
-        from gsrs_tpu_torch.kernels import build_kernels
+        from gsrs_tpu_torch.kernels import KERNELS, build_kernels
 
-        build_kernels(KERNEL_SOURCES)
+        build_kernels(KERNELS)
 
 
 def _rank_main(rank: int, n_ranks: int, backend: str, device_type: str, tmp: str,

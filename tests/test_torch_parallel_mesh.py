@@ -12,13 +12,15 @@ whose blocks hold −0.0 and +0.0 on different ranks (and pad with −inf at
 id m, as `dist_train.sharded_topk` pads), it ranks −0.0 below +0.0 and
 returns `lax.top_k`'s ids and values of the whole row bit for bit."""
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from gsrs_tpu_torch.ops.topk import topk_scores
 from gsrs_tpu_torch.parallel import collectives as C
-from gsrs_tpu_torch.parallel.launch import spawn
+from gsrs_tpu_torch.parallel.launch import build_kernels_for, spawn
 from gsrs_tpu_torch.parallel.mesh import (
     Mesh, choose_backend, distributed_init, make_mesh, single_device_mesh,
 )
@@ -163,6 +165,20 @@ def test_mesh_is_row_major_and_the_backend_is_asked_for():
     assert C.all_reduce_(x, one) is x and C.psum(one, x)[0].equal(x)
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(data_axis=2, model_axis=2, device="cpu")
+
+
+def test_every_kernel_is_built_before_the_ranks_start_on_the_card(monkeypatch):
+    """`build_kernels_for` asks for every ``csrc/*.cu`` source on CUDA, so
+    no rank compiles a kernel itself at its first call; on the CPU it asks
+    for none."""
+    from gsrs_tpu_torch import kernels
+
+    asked = []
+    monkeypatch.setattr(kernels, "build_kernels", lambda names: asked.append(sorted(names)))
+    build_kernels_for("cpu")
+    assert asked == []
+    build_kernels_for("cuda")
+    assert asked == [sorted(p.stem for p in pathlib.Path(kernels.CSRC_DIR).glob("*.cu"))]
 
 
 def test_distributed_init_rejects_partial_explicit_config(monkeypatch):

@@ -387,9 +387,12 @@ def test_tiled_dropout_uses_one_hash_mask_per_propagation():
 
 def test_bench_builds_bench_py_configuration_and_runs_small(tmp_path):
     """`gsrs_tpu_torch.bench`: bench.py's configuration field for field,
-    Gowalla when data/gowalla/train.txt exists and the stand-in otherwise,
-    and `run_bench` end to end on the CPU at a small size."""
+    Gowalla when a directory holds train.txt and the stand-in otherwise,
+    and one `Trainer.train_epoch` of that configuration (as
+    ``chip_smoke.py`` runs it) on the CPU at a small size."""
     from gsrs_tpu_torch import bench
+    from gsrs_tpu_torch.models.registry import build_model
+    from gsrs_tpu_torch.train.trainer import Trainer
 
     cfg = bench.bench_config()
     m, t = cfg.model, cfg.train
@@ -400,21 +403,23 @@ def test_bench_builds_bench_py_configuration_and_runs_small(tmp_path):
     assert not m.dropout and t.lr == 1e-3
     (tmp_path / "gowalla").mkdir()
     (tmp_path / "gowalla" / "train.txt").write_text("0 1 2\n1 0 2\n2 1\n")
-    data, label, ddir = bench.load_bench_data(str(tmp_path))
+    data, label, ddir = bench.gowalla_or_stand_in(str(tmp_path / "gowalla"))
     assert label == "gowalla" and ddir == str(tmp_path / "gowalla") and data.train_size == 5
-    assert bench.load_bench_data(str(tmp_path / "none"))[1:] == (bench.STAND_IN, None)
+    assert bench.gowalla_or_stand_in(str(tmp_path / "none"))[1:] == (bench.STAND_IN, None)
 
     small = dataclasses.replace(
         cfg, model=dataclasses.replace(m, embedding_dim=8, tiled_groups=4, tiled_cols=16),
         train=dataclasses.replace(t, batch_size=128))
     data = tsyn.powerlaw(200, 300, avg_degree=6, seed=1, holdout_frac=0.2)
-    out = bench.run_bench(CPU, data, small, epochs=2)
-    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
-    assert out["steps_per_epoch"] == -(-data.train_size // 128) and out["epoch_s"] > 0
-    assert out["state"].epoch == 3
-    layout = out["trainer"].model.ell
-    assert isinstance(layout, ttiled.TiledGraph)
-    assert layout.user_from_item.dense.dtype == torch.bfloat16
+    graph = tadj.build_graph(data)
+    layout = ttiled.tiled_from_interactions(data, groups=4, cols=16, dtype=torch.bfloat16)
+    model = build_model(small.model, graph, ell=layout, device=CPU)
+    trainer = Trainer(small, data, graph, model, run_eval=False, device=CPU)
+    state, loss = trainer.train_epoch(trainer.init_state())
+    assert np.isfinite(loss) and state.epoch == 1
+    assert trainer.steps_per_epoch == -(-data.train_size // 128)
+    assert isinstance(model.ell, ttiled.TiledGraph)
+    assert model.ell.user_from_item.dense.dtype == torch.bfloat16
 
 
 # ------------------------------------------------------------ on the card
