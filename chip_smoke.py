@@ -3064,7 +3064,7 @@ def seq_steps(kind, bf16, data, batches, draws, seed, device, control=None):
     if control == "late_bias":
         for p in state.params.values():
             state.opt_state.optimizer.state[p] = {
-                "step": torch.tensor(1.0), "exp_avg": torch.zeros_like(p),
+                "step": torch.tensor(1.0, device=p.device), "exp_avg": torch.zeros_like(p),
                 "exp_avg_sq": torch.zeros_like(p)}
     patch = contextlib.nullcontext()
     if control == "erf_gelu":

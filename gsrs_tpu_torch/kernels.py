@@ -85,15 +85,28 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by kernel name (each wrapper
-    adds one where it launches its kernel, and nowhere else)."""
+def _counters():
     from gsrs_tpu_torch.ops import ell_kernel, gather, scoring, topk
     from gsrs_tpu_torch.train import fused_adam
 
-    return {k: n for c in (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES,
-                           topk.LAUNCHES, gather.LAUNCHES)
-            for k, n in c.items()}
+    return (scoring.LAUNCHES, ell_kernel.LAUNCHES, fused_adam.LAUNCHES, topk.LAUNCHES,
+            gather.LAUNCHES)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel name (each wrapper
+    adds one where it launches its kernel, and nowhere else; a CUDA
+    graph's replay adds what its capture counted, `add_launches`)."""
+    return {k: n for c in _counters() for k, n in c.items()}
+
+
+def add_launches(made: Dict[str, int]) -> None:
+    """Count ``made`` ({kernel: launches}, a `launches_since` of a CUDA
+    graph's capture) once more: a replay launches what the capture did,
+    and runs no wrapper."""
+    for c in _counters():
+        for k in c:
+            c[k] += made.get(k, 0)
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:

@@ -109,6 +109,66 @@ class ScheduledAdam:
         return AdamState(state.count + 1, state.optimizer)
 
 
+@dataclasses.dataclass
+class CapturableAdam(ScheduledAdam):
+    """`ScheduledAdam`'s math for a step that a CUDA graph replays (the
+    sequential trainer on one card): `torch.optim.Adam`/`AdamW` with
+    ``capturable=True`` (their step counts and bias corrections on the
+    device) and the learning rate a float32 tensor on ``device``, which
+    `set_lr` writes before each step, outside any capture: a float would
+    be baked into the graph. `step` clips and updates and leaves the
+    gradients where they are (a replay writes them in place); the caller
+    clears them before an eager step. Checkpoints keep `ScheduledAdam`'s
+    form (a float learning rate, the step counts on the host), so they
+    load into either."""
+
+    device: Optional[torch.device] = None
+
+    def init(self, params: Dict[str, torch.nn.Parameter]) -> AdamState:
+        lr = torch.tensor(self.schedule(0), dtype=torch.float32, device=self.device)
+        kw = dict(lr=lr, betas=(self.b1, self.b2), eps=self.eps, capturable=True)
+        ps = list(params.values())
+        if self.weight_decay:
+            groups = [{"params": [p for p in ps if p.dim() >= 2],
+                       "weight_decay": self.weight_decay},
+                      {"params": [p for p in ps if p.dim() < 2], "weight_decay": 0.0}]
+            opt = torch.optim.AdamW([g for g in groups if g["params"]], **kw)
+        else:
+            opt = torch.optim.Adam(ps, **kw)
+        # the eager steps before a capture are by design: no warning that they are uncaptured
+        opt._warned_capturable_if_run_uncaptured = True
+        opt.register_state_dict_post_hook(_host_form)
+        opt.register_load_state_dict_pre_hook(self._device_form)
+        return AdamState(0, opt)
+
+    def set_lr(self, state: AdamState) -> None:
+        """Write ``schedule(state.count)`` into the learning rate."""
+        lr = self.schedule(state.count)
+        for group in state.optimizer.param_groups:
+            group["lr"].fill_(lr)
+
+    def step(self, params: Dict[str, torch.nn.Parameter], state: AdamState) -> AdamState:
+        if self.clip_norm is not None:
+            with span("train.clip"):
+                torch.nn.utils.clip_grad_norm_(list(params.values()), self.clip_norm)
+        state.optimizer.step()
+        return AdamState(state.count + 1, state.optimizer)
+
+    def _device_form(self, optimizer, saved: dict) -> dict:
+        groups = [dict(g, capturable=True,
+                       lr=torch.tensor(float(g["lr"]), dtype=torch.float32, device=self.device))
+                  for g in saved["param_groups"]]
+        return dict(saved, param_groups=groups)
+
+
+def _host_form(optimizer, saved: dict) -> dict:
+    """`CapturableAdam`'s state dict in `ScheduledAdam`'s form."""
+    groups = [dict(g, capturable=False, lr=float(g["lr"])) for g in saved["param_groups"]]
+    state = {k: dict(s, step=s["step"].cpu()) if "step" in s else s
+             for k, s in saved["state"].items()}
+    return dict(saved, state=state, param_groups=groups)
+
+
 Optimizer = Union[ScheduledAdam, FusedAdam]
 
 

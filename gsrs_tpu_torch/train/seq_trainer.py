@@ -20,14 +20,32 @@ A `train_epoch` call trains the rest of the epoch, or, with
 ``steps_per_call`` set, exactly that many steps, going on where the last
 call stopped in the epoch's permutation and into the next epoch's.
 
+On one card (a CUDA device, no mesh) a step is replayed from a CUDA
+graph (`torch.cuda.CUDAGraph`): the first `WARMUP_STEPS` steps of an
+optimizer state with a batch shape run eagerly (they make AdamW's state
+and cuBLAS's handles and workspaces), the next is captured, the input
+shift, forward, backward, clip and update, and every later step of that
+shape copies its batch and draws (made eagerly, as everywhere) into the
+graph's inputs and replays it. The optimizer is then `CapturableAdam`,
+the same AdamW with its learning rate a device tensor written before
+every step, in eager steps too, so replayed and eager steps give the
+same bits. A new optimizer state (`init_state`, `restore`) warms up and
+captures anew. ``STEP_GRAPHS`` counts the captures and the replays (a
+captured step, run by launching its graph, counts as the capture), and a
+replay adds its capture's kernel launches to `kernels.launch_counts`.
+The CPU and a mesh step eagerly with `ScheduledAdam`.
+
 Spans (`gsrs_tpu_torch.utils.timer.span`, recorded under a profile):
 ``train.call`` a call (``shape`` (steps, B, L)), ``train.step`` a step,
 holding ``train.sample`` (the draws), ``train.forward`` (the model's own
 spans inside: BERT4Rec's published loss records ``seq.encode`` and
 ``seq.head``, ``shape`` (slots, m, d)), ``train.backward`` and
 ``train.optimizer`` (``train.clip`` inside, where the gradient is
-clipped); ``sync.train.loss`` around the one read of the call's mean
-loss. A step reads nothing on the host.
+clipped), or on one card, after the warm-up, ``train.capture`` around
+those (once; `torch.cuda.graph` synchronizes the card as it begins) or
+``train.replay`` around the copies and the replay; ``sync.train.loss``
+around the one read of the call's mean loss. A step reads nothing on the
+host.
 
 Eval (leave-last-item-out; HR@k is recall@k with one ground-truth item):
 per padded batch of ``eval_batch`` users, the model's query, then the
@@ -60,6 +78,7 @@ import torch
 
 from gsrs_tpu_torch.data.sequences import SequenceData
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
+from gsrs_tpu_torch.kernels import add_launches, launch_counts, launches_since
 from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
 from gsrs_tpu_torch.ops.linalg import fp32_reduction
 from gsrs_tpu_torch.ops.metrics import batch_metrics, topk_labels
@@ -71,12 +90,20 @@ from gsrs_tpu_torch.parallel.collectives import (
 from gsrs_tpu_torch.parallel.mesh import single_device_mesh
 from gsrs_tpu_torch.parallel.seq_sharding import SEQ_TABLES, SeqShardings, slice_rows
 from gsrs_tpu_torch.train.optim import (
-    ScheduledAdam, linear_warmup_decay, load_optimizer_state, optimizer_state_dict,
+    CapturableAdam, ScheduledAdam, linear_warmup_decay, load_optimizer_state,
+    optimizer_state_dict,
 )
 from gsrs_tpu_torch.train.trainer import stream_seed
 from gsrs_tpu_torch.utils.timer import span
 
 _PERM, _STEP = 0, 1  # the random streams of an epoch
+WARMUP_STEPS = 3  # eager steps before a capture, as PyTorch's whole-network example takes
+STEP_GRAPHS = {"captures": 0, "replays": 0}
+
+
+def step_graph_counts() -> Dict[str, int]:
+    """The captures and replays of training steps so far (module note)."""
+    return dict(STEP_GRAPHS)
 
 
 @dataclasses.dataclass
@@ -98,17 +125,60 @@ class StepDraws(NamedTuple):
     model: Any
 
 
-def to_device(tree: Any, device: torch.device) -> Any:
-    """``tree`` (tensors in tuples, named tuples, lists; None) with every
-    tensor on ``device``."""
+def _map_tensors(fn, tree: Any) -> Any:
+    """``tree`` (tensors in tuples, named tuples, lists; None) with ``fn``
+    of every tensor."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return fn(tree)
     if isinstance(tree, tuple):
-        items = [to_device(v, device) for v in tree]
+        items = [_map_tensors(fn, v) for v in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
+        return [_map_tensors(fn, v) for v in tree]
     return tree
+
+
+def to_device(tree: Any, device: torch.device) -> Any:
+    """``tree`` with every tensor on ``device``."""
+    return _map_tensors(lambda t: t.to(device), tree)
+
+
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, a tree of the
+    same form."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src, strict=True):
+            _copy_into(d, s)
+
+
+class _StepGraph:
+    """One training step captured as a CUDA graph: its inputs (the batch
+    and the draws), its loss and its optimizer state live at fixed
+    addresses; the kernel launches its capture counted."""
+
+    def __init__(self, seqs: torch.Tensor, draws: "StepDraws"):
+        self.seqs, self.draws = seqs.clone(), _map_tensors(torch.clone, draws)
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, step, state: "SeqTrainState"):
+        """Capture ``step(state, seqs, draws)`` on the graph's inputs, then
+        run it once by a replay (a capture runs nothing) → (state, loss)."""
+        before = launch_counts()
+        with torch.cuda.graph(self.graph):
+            state, self.loss = step(state, self.seqs, self.draws)
+        self.launches = launches_since(before)
+        self.graph.replay()
+        return state, self.loss.clone()
+
+    def replay(self, seqs: torch.Tensor, draws: "StepDraws") -> torch.Tensor:
+        """The step on ``seqs`` and ``draws`` → its loss (a copy)."""
+        self.seqs.copy_(seqs)
+        _copy_into(self.draws, draws)
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.loss.clone()
 
 
 def _catalog_bitset(users: np.ndarray, shifted_items: np.ndarray, n_users: int,
@@ -171,8 +241,15 @@ class SeqTrainer:
             schedule = linear_warmup_decay(lr, warmup_steps, decay_steps)
         else:
             schedule = lambda count: float(np.float32(lr))  # noqa: E731
-        self.optimizer = ScheduledAdam(schedule, eps=adam_eps, weight_decay=weight_decay,
-                                       clip_norm=clip_norm)
+        opt_kw = dict(eps=adam_eps, weight_decay=weight_decay, clip_norm=clip_norm)
+        # one card: steps replay from CUDA graphs (module note)
+        self._one_card = dev.type == "cuda" and mesh is None
+        self.optimizer = (CapturableAdam(schedule, device=dev, **opt_kw) if self._one_card
+                          else ScheduledAdam(schedule, **opt_kw))
+        # the optimizer whose steps the graphs and warm-up counts below hold
+        self._graphed_opt: Optional[torch.optim.Optimizer] = None
+        self._graphs: Dict[Tuple[int, ...], _StepGraph] = {}
+        self._eager: Dict[Tuple[int, ...], int] = {}
         # steps a `train_epoch` call runs at most; None: the rest of the epoch
         self.steps_per_call: Optional[int] = None
         self._perm: Optional[Tuple[int, torch.Tensor]] = None
@@ -257,6 +334,41 @@ class SeqTrainer:
             opt_state = self.optimizer.step(state.params, state.opt_state)
         return dataclasses.replace(state, opt_state=opt_state), total.detach()
 
+    def _captures(self) -> bool:
+        """Whether steps on this trainer are captured and replayed."""
+        return self._one_card
+
+    def _train_step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws):
+        """One step → (state, the loss): on the CPU or a mesh `_step`; on
+        one card eager for the first `WARMUP_STEPS` of the optimizer state
+        and the batch shape, captured at the next, replayed after (module
+        note)."""
+        if not self._one_card:
+            return self._step(state, seqs, draws)
+        opt = state.opt_state
+        if self._graphed_opt is not opt.optimizer:
+            self._graphed_opt, self._graphs, self._eager = opt.optimizer, {}, {}
+        self.optimizer.set_lr(opt)
+        key = tuple(seqs.shape)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            with span("train.replay"):
+                loss = graph.replay(seqs, draws)
+            STEP_GRAPHS["replays"] += 1
+            return dataclasses.replace(state, opt_state=dataclasses.replace(
+                opt, count=opt.count + 1)), loss
+        for p in state.params.values():  # the backward writes the gradients anew
+            p.grad = None
+        if self._eager.get(key, 0) < WARMUP_STEPS or not self._captures():
+            self._eager[key] = self._eager.get(key, 0) + 1
+            return self._step(state, seqs, draws)
+        with span("train.capture"):
+            graph = _StepGraph(seqs, to_device(draws, self.device))
+            state, loss = graph.capture(self._step, state)
+        self._graphs[key] = graph
+        STEP_GRAPHS["captures"] += 1
+        return state, loss
+
     def _mesh_share(self, inp, seqs, draws: StepDraws) -> torch.Tensor:
         """This rank's share of the global batch's ``bpr + decay · reg``:
         its slice's BPR sum over the global weight total and its slice's
@@ -279,7 +391,7 @@ class SeqTrainer:
         losses = []
         for seqs, d in zip(torch.as_tensor(batches, device=self.device), draws):
             with span("train.step"):
-                state, loss = self._step(state, seqs.long(), d)
+                state, loss = self._train_step(state, seqs.long(), d)
             losses.append(loss)
         return state, self._global(torch.stack(losses))
 
@@ -323,7 +435,7 @@ class SeqTrainer:
                     seqs = self._batch(epoch, i)
                     with span("train.sample"):
                         draws = self.draw_step(seqs, self.step_generator(epoch, i))
-                    state, loss = self._step(state, seqs, draws)
+                    state, loss = self._train_step(state, seqs, draws)
                 losses.append(loss)
                 epoch, i = (epoch + 1, 0) if i + 1 == self.steps_per_epoch else (epoch, i + 1)
             mean = self._global(torch.stack(losses)).mean()

@@ -8,8 +8,9 @@ Three steps of each kind on a 2 × 2 mesh, and of SASRec on 4 × 1 and
 1 × 4, give JAX's losses within a relative 2e-4 (JAX's own limit for its
 mesh, `tests/test_distributed.py`) and its parameters within 5e-5 (the
 port's one-card limit, `tests/test_torch_seq_trainer.py`); the eval of
-those parameters gives JAX's metrics within 2e-4. A batch that does not
-divide by the data axis is refused. Checkpoints hold the canonical item
+those parameters gives JAX's metrics within 2e-4; no rank captures a step
+in a CUDA graph (that is one card's path). A batch that does not divide by
+the data axis is refused. Checkpoints hold the canonical item
 table: a 2 × 2 ``seq_cli`` run's checkpoint resumes on one card, the
 card's on a 4 × 1 mesh, and ``serve_seq export`` reads the result."""
 
@@ -26,7 +27,7 @@ from gsrs_tpu_torch.models.registry import build_seq_model
 from gsrs_tpu_torch.parallel.collectives import barrier
 from gsrs_tpu_torch.parallel.launch import spawn
 from gsrs_tpu_torch.parallel.mesh import Mesh, make_mesh
-from gsrs_tpu_torch.train.seq_trainer import SeqTrainer, SeqTrainState
+from gsrs_tpu_torch.train.seq_trainer import SeqTrainer, SeqTrainState, step_graph_counts
 
 LOSS_RTOL, PARAM_ATOL, METRIC_RTOL = 2e-4, 5e-5, 2e-4
 M, L, D, B = 50, 10, 16, 16
@@ -69,6 +70,8 @@ def _seq_rank(device, inputs, ckpt):
         state, losses = tr.run_steps(SeqTrainState(params, tr.optimizer.init(params)),
                                      batches, draws)
         out[(kind, axes)] = (losses, tr.ckpt_state(state)["params"], tr.evaluate(state))
+        out.setdefault("optimizers", set()).add(type(tr.optimizer).__name__)
+    out["step_graphs"] = step_graph_counts()
     seq_cli.main(cli_argv(ckpt, 1, (2, 2)), device=device)
     mesh = meshes[(2, 2)]
     barrier(mesh)
@@ -125,6 +128,14 @@ def test_seq_trainer_on_mesh_matches_jax(ranks, jax_side, kind, axes):
         for k, v in want_params.items():
             np.testing.assert_allclose(params[k].numpy(), v.numpy(), rtol=0, atol=PARAM_ATOL,
                                        err_msg=k)
+
+
+def test_seq_trainer_on_mesh_never_captures(ranks):
+    """A mesh steps eagerly (its step sums shares across ranks): no rank
+    captures or replays a step, and each takes `ScheduledAdam`."""
+    for out in ranks[0]:
+        assert out["step_graphs"] == {"captures": 0, "replays": 0}
+        assert out["optimizers"] == {"ScheduledAdam"}
 
 
 def test_seq_trainer_rejects_indivisible_batch():
