@@ -35,6 +35,10 @@
 // is added by atomics, so two calls on the same inputs give the same bits. Nothing is read on the
 // host, and the host makes one call: the sort, the scratch and the launches are all here, since
 // on a host-bound step each PyTorch call around the kernels costs as much as they do.
+// Its weakness: step 5's one warp walks all of a row's partials, so a run of millions of one id
+// (tens of thousands of partials) sets the backward's time. HSTU relies on working round it
+// (models/hstu.py's spread_ids spreads its zero-gradient ids over the table's rows); a combine of
+// a long run's partials by many warps would make that needless.
 //
 // A lane takes columns lane + 32 v (v < V, V = 1, 2 or 4 by d) of each row, in tiles of 32 V
 // columns, so a warp reads a row's 32 V values at once (one 256-byte row of 64 fp32 in two

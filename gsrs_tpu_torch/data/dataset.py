@@ -3,7 +3,10 @@
 The LightGCN txt format: one line per user, ``uid iid iid …``; blank
 lines and lines with a uid but no items are skipped; ``item:timestamp``
 tokens are tolerated; node counts are max id + 1 over BOTH train and
-test files. Writers of that format, the lastfm loader and the node
+test files. A directory may also hold ``train_times.txt``, each train
+pair's time in seconds in the same layout (``uid t t …``, line for line
+and token for token with train.txt), which the MovieLens converter
+writes; `load_dataset` reads it into ``train_times``. Writers of that format, the lastfm loader and the node
 padding for a mesh's model axis (`pad_nodes_to_multiple`) are here too."""
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ class InteractionData:
     ``train_users[k]`` interacted with ``train_items[k]``, in file order.
     ``test_dict`` maps user id → int64 array of held-out items.
     ``real_m_items``/``real_n_users`` are the real node counts when the
-    counts were padded (None = no padding)."""
+    counts were padded (None = no padding). ``train_times[k]``: the time
+    of pair k in seconds, where the dataset has times (None = none)."""
 
     name: str
     n_users: int
@@ -33,6 +37,7 @@ class InteractionData:
     test_dict: Dict[int, np.ndarray]
     real_m_items: Optional[int] = None
     real_n_users: Optional[int] = None
+    train_times: Optional[np.ndarray] = None  # (N,) int64 seconds
 
     @property
     def train_size(self) -> int:
@@ -127,11 +132,12 @@ def write_interaction_file(
             f.write(f"{u} " + " ".join(str(i) for i in its) + "\n")
 
 
-def write_dataset_dir(out_dir, train_rows, test_rows):
+def write_dataset_dir(out_dir, train_rows, test_rows, train_times=None):
     """A dataset directory from per-user ``(org_user_id, [org_item_id…])``
     rows: train.txt/test.txt with dense remapped ids (item order within a
     row kept), and user_list.txt/item_list.txt mapping ``org_id
-    remap_id``. → (n_users, m_items)."""
+    remap_id``; with ``train_times`` (per train row, its items' times in
+    seconds) also train_times.txt. → (n_users, m_items)."""
     user_ids = sorted(u for u, _ in train_rows)
     item_ids = sorted({i for _, its in train_rows for i in its}
                       | {i for _, its in test_rows for i in its})
@@ -143,6 +149,12 @@ def write_dataset_dir(out_dir, train_rows, test_rows):
         with open(os.path.join(out_dir, name), "w") as f:
             for org_u, its in rows:
                 f.write(f"{u_map[org_u]} " + " ".join(str(i_map[i]) for i in its) + "\n")
+    if train_times is not None:
+        with open(os.path.join(out_dir, "train_times.txt"), "w") as f:
+            for (org_u, its), ts in zip(train_rows, train_times, strict=True):
+                if len(ts) != len(its):
+                    raise ValueError(f"user {org_u}: {len(its)} items, {len(ts)} times")
+                f.write(f"{u_map[org_u]} " + " ".join(str(int(t)) for t in ts) + "\n")
     for name, mapping in (("user_list.txt", u_map), ("item_list.txt", i_map)):
         with open(os.path.join(out_dir, name), "w") as f:
             f.write("org_id remap_id\n")
@@ -164,6 +176,12 @@ def load_dataset(dataset_dir: str, name: Optional[str] = None) -> InteractionDat
         vals = [int(a.max()) for a in arrays if a.size]
         return max(vals) if vals else -1
 
+    times = None
+    times_path = os.path.join(dataset_dir, "train_times.txt")
+    if os.path.exists(times_path):
+        t_u, times = parse_interaction_file(times_path)
+        if not np.array_equal(t_u, tr_u):
+            raise ValueError(f"{times_path} does not match train.txt pair for pair")
     return InteractionData(
         name=name or (os.path.basename(os.path.normpath(dataset_dir)) or "dataset"),
         n_users=_max(tr_u, te_u) + 1,
@@ -171,6 +189,7 @@ def load_dataset(dataset_dir: str, name: Optional[str] = None) -> InteractionDat
         train_users=tr_u,
         train_items=tr_i,
         test_dict=_build_test_dict(te_u, te_i),
+        train_times=times,
     )
 
 
@@ -243,4 +262,5 @@ def pad_nodes_to_multiple(data: InteractionData, multiple: int) -> InteractionDa
         test_dict=data.test_dict,
         real_m_items=data.real_m_items or data.m_items,
         real_n_users=data.real_n_users or data.n_users,
+        train_times=data.train_times,
     )

@@ -4,7 +4,8 @@
 Any MovieLens ratings dump becomes a dataset directory with the artifacts
 of the other converters (train.txt / test.txt / user_list.txt /
 item_list.txt, ids densely remapped, each user's items in temporal order,
-so the same directory feeds the sequential family).
+so the same directory feeds the sequential family), and train_times.txt,
+each train item's rating time in seconds (the models with times, HSTU).
 
 Input formats (auto-detected):
 - ``u.data``        (ML-100K):  user<TAB>item<TAB>rating<TAB>timestamp
@@ -91,6 +92,7 @@ def prepare_movielens(
     arr = arr[order]
 
     train_rows: List[Tuple[int, List[int]]] = []
+    train_times: List[List[int]] = []
     test_rows: List[Tuple[int, List[int]]] = []
     boundaries = np.flatnonzero(np.diff(arr[:, 0])) + 1
     for grp in np.split(arr, boundaries):
@@ -98,11 +100,13 @@ def prepare_movielens(
         # dedupe items keeping first (earliest) occurrence
         _, first_idx = np.unique(grp[:, 1], return_index=True)
         its = grp[np.sort(first_idx), 1].tolist()
+        ts = grp[np.sort(first_idx), 3].tolist()
         if len(its) < max(min_interactions, 2):
             continue
         n_test = 1 if split == "leave_last" else max(1, int(round(test_frac * len(its))))
         n_test = min(n_test, len(its) - 1)  # always keep >=1 train item
         train_rows.append((org_u, [int(i) for i in its[: len(its) - n_test]]))
+        train_times.append([int(t) for t in ts[: len(its) - n_test]])
         test_rows.append((org_u, [int(i) for i in its[len(its) - n_test:]]))
 
     if not train_rows:
@@ -110,7 +114,7 @@ def prepare_movielens(
 
     from gsrs_tpu_torch.data.dataset import write_dataset_dir
 
-    return write_dataset_dir(out_dir, train_rows, test_rows)
+    return write_dataset_dir(out_dir, train_rows, test_rows, train_times)
 
 
 def main(argv=None) -> None:

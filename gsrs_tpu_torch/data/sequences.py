@@ -3,14 +3,15 @@
 
 Per-user interaction sequences in file order (the temporal order the
 converters emit), leave-last-item-out evaluation, and the cluster-Markov
-synthetic generator of the learnability checks. Item ids are shifted by
+synthetic generator of the learnability checks. Where the dataset has
+times, each slot's time in seconds is laid out like the ids (0 at PAD). Item ids are shifted by
 +1 inside sequences so that 0 is the padding token; the sequential
 trainer unshifts (-1) when it builds catalog bitsets."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -26,7 +27,10 @@ class SequenceData:
     both for training and as the eval context. ``eval_targets[k]``: the
     held-out (last) item, shifted. ``user_hist_sets[u]``: the unique
     shifted history ids minus the target (a target that also appears
-    earlier in the history is not masked away at eval time)."""
+    earlier in the history is not masked away at eval time).
+    ``train_times``/``eval_times``: each slot's time in seconds, laid out
+    like ``train_seqs``/``eval_seqs`` (0 at PAD); None where the dataset
+    has no times."""
 
     name: str
     n_users: int
@@ -37,6 +41,8 @@ class SequenceData:
     eval_users: np.ndarray  # (N,) int64
     eval_targets: np.ndarray  # (N,) int32, shifted
     user_hist_sets: Dict[int, np.ndarray]
+    train_times: Optional[np.ndarray] = None  # (N, max_len) int64 seconds
+    eval_times: Optional[np.ndarray] = None
 
 
 def sequences_from_interactions(
@@ -45,16 +51,20 @@ def sequences_from_interactions(
     """Leave-last-out sequences from a bipartite dataset, each user's
     train interactions in file order taken as time. Users with fewer than
     ``min_len`` interactions are left out; histories keep the most recent
-    ``max_len`` items."""
+    ``max_len`` items; each slot's time goes with it where the dataset has
+    times."""
     order = np.argsort(data.train_users, kind="stable")
     users_sorted = data.train_users[order]
     items_sorted = data.train_items[order]
     boundaries = np.flatnonzero(np.diff(users_sorted)) + 1
     groups = np.split(items_sorted, boundaries)
     group_users = users_sorted[np.concatenate([[0], boundaries])] if users_sorted.size else []
+    with_times = data.train_times is not None
+    time_groups = (np.split(np.asarray(data.train_times, np.int64)[order], boundaries)
+                   if with_times else [None] * len(groups))
 
-    seqs, targets, users, hist_sets = [], [], [], {}
-    for u, its in zip(np.asarray(group_users, dtype=np.int64), groups):
+    seqs, times, targets, users, hist_sets = [], [], [], [], {}
+    for u, its, ts in zip(np.asarray(group_users, dtype=np.int64), groups, time_groups):
         if its.size < min_len:
             continue
         target = int(its[-1]) + 1
@@ -62,11 +72,18 @@ def sequences_from_interactions(
         row = np.zeros(max_len, dtype=np.int32)
         row[max_len - hist.size:] = hist
         seqs.append(row)
+        if with_times:
+            t_row = np.zeros(max_len, dtype=np.int64)
+            t_row[max_len - hist.size:] = ts[:-1][-max_len:]
+            times.append(t_row)
         targets.append(target)
         users.append(int(u))
         hist_sets[int(u)] = np.setdiff1d(hist.astype(np.int64), [target])
 
     train_seqs = np.stack(seqs) if seqs else np.zeros((0, max_len), dtype=np.int32)
+    train_times = None
+    if with_times:
+        train_times = np.stack(times) if times else np.zeros((0, max_len), dtype=np.int64)
     return SequenceData(
         name=data.name,
         n_users=data.n_users,
@@ -77,6 +94,8 @@ def sequences_from_interactions(
         eval_users=np.asarray(users, dtype=np.int64),
         eval_targets=np.asarray(targets, dtype=np.int32),
         user_hist_sets=hist_sets,
+        train_times=train_times,
+        eval_times=train_times,
     )
 
 

@@ -48,7 +48,8 @@ def build_model(
     return MODELS[cfg.model](cfg, graph, **kw)
 
 
-SEQ_MODELS = ("sasrec", "gru4rec", "bert4rec")
+SEQ_MODELS = ("sasrec", "gru4rec", "bert4rec")  # the JAX package's, and the port's
+PORT_SEQ_MODELS = SEQ_MODELS + ("hstu",)  # and the port's own
 
 
 def build_seq_model(
@@ -72,10 +73,19 @@ def build_seq_model(
     the one place that maps the flat CLI and serving hyperparameters onto
     each model's config. ``blocks`` is GRU4Rec's layer count, ``hidden``
     its hidden width. ``published``: BERT4Rec as published, with that many
-    prediction slots a sequence (`models.bert4rec`)."""
+    prediction slots a sequence (`models.bert4rec`). HSTU (`models.hstu`):
+    ``hidden`` is a head's width (d_qk = d_v)."""
     kw = dict(device=device, generator=generator)
     if published and kind != "bert4rec":
         raise ValueError(f"published is BERT4Rec's option, not {kind}'s")
+    if kind == "hstu":
+        from gsrs_tpu_torch.models.hstu import HSTU, HSTUConfig
+
+        if bf16:
+            raise ValueError("HSTU runs in float32: bf16 is not an option of it")
+        return HSTU(HSTUConfig(
+            m_items=m_items, max_len=max_len, embedding_dim=dim, num_blocks=blocks,
+            num_heads=heads, head_dim=hidden, dropout_rate=dropout), **kw)
     if kind == "sasrec":
         from gsrs_tpu_torch.models.sasrec import SASRec, SASRecConfig
 
@@ -96,7 +106,7 @@ def build_seq_model(
             m_items=m_items, max_len=max_len, embedding_dim=dim, hidden_dim=hidden,
             num_layers=blocks, dropout_rate=dropout, bf16_compute=bf16), **kw)
     raise ValueError(
-        f"sequential model '{kind}' is not registered; available: {sorted(SEQ_MODELS)}"
+        f"sequential model '{kind}' is not registered; available: {sorted(PORT_SEQ_MODELS)}"
     )
 
 
@@ -114,7 +124,8 @@ def seq_model_meta(model) -> dict:
         "m_items": int(c.m_items),
         "max_len": int(c.max_len),
         "dim": int(c.embedding_dim),
-        "hidden": int(getattr(c, "ffn_hidden", 0) or getattr(c, "hidden_dim", 0)),
+        "hidden": int(getattr(c, "ffn_hidden", 0) or getattr(c, "hidden_dim", 0)
+                      or getattr(c, "head_dim", 0)),
         "blocks": int(getattr(c, "num_blocks", 0) or getattr(c, "num_layers", 0)),
         "heads": int(getattr(c, "num_heads", 1)),
     }

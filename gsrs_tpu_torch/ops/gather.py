@@ -11,6 +11,15 @@ so two calls give the same bits, and no host read. PyTorch's own
 backward of ``table[ids]`` (``index_put_`` with accumulation) sums each
 id's run serially in one warp.
 
+The kernel's one weakness: one warp a table row combines that row's chunk
+partials, so a run of millions of one id (a run's chunks number its
+length over 32) sets the backward's time. Callers rely on working round
+it: HSTU (`models.hstu.spread_ids`) spreads the ids whose gradient is 0
+over the table's rows, where its bias and head would otherwise hand the
+kernel runs of millions; BERT4Rec's PAD run (about 27,700 ids a batch) is
+left as it is. A combine of a long run's partials by many warps would
+make that workaround needless.
+
 Dispatch: a CPU table takes the plain version, which is ``table[ids]``
 itself and its autograd backward (`gather_rows_grad_plain` computes that
 backward alone). A CUDA table that needs a gradient takes the kernel or

@@ -1,5 +1,6 @@
 """Command-line training of the sequential family (port of
-`gsrs_tpu.seq_cli`): SASRec, GRU4Rec and BERT4Rec.
+`gsrs_tpu.seq_cli`): SASRec, GRU4Rec and BERT4Rec, and the port's own
+HSTU.
 
     python -m gsrs_tpu_torch.seq_cli --dataset gowalla --model sasrec --epochs 50
     python -m gsrs_tpu_torch.seq_cli --synthetic --model gru4rec
@@ -20,6 +21,14 @@ BERT4Rec as published (Sun et al., CIKM 2019; ML-20M's run script):
 published model with P prediction slots a sequence, at the published
 cloze ratio and last-item-only share (`PUBLISHED_CLOZE`), and trains it
 with BERT's optimizer (`PUBLISHED_OPTIM`).
+
+HSTU (Zhai et al., ICML 2024; the released ML-20M large settings):
+``--model hstu --max_len 200 --dim 256 --blocks 8 --heads 4 --hidden 64
+--batch 128 --lr 1e-3`` on a dataset with times (the MovieLens
+converter's ``train_times.txt``; without them it stops); ``--hidden`` is
+a head's width, the sampled softmax takes the released 128 negatives a
+slot at temperature 0.05, and the optimizer is the released AdamW
+(`HSTU_OPTIM`).
 """
 
 from __future__ import annotations
@@ -38,11 +47,14 @@ PUBLISHED_CLOZE = dict(mask_prob=0.2, last_only_prob=1 / 11)
 # BERT's optimizer (the released code's optimization.py and run_ml-20m.sh)
 PUBLISHED_OPTIM = dict(warmup_steps=100, decay_steps=400_000, weight_decay=0.01,
                        clip_norm=5.0, adam_eps=1e-6)
+# HSTU's released AdamW: betas (0.9, 0.98), no weight decay, warm-up or clip
+HSTU_OPTIM = dict(adam_betas=(0.9, 0.98))
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gsrs_tpu_torch.seq_cli")
-    p.add_argument("--model", choices=["sasrec", "gru4rec", "bert4rec"], default="sasrec")
+    p.add_argument("--model", choices=["sasrec", "gru4rec", "bert4rec", "hstu"],
+                   default="sasrec")
     p.add_argument("--dataset", type=str, default="gowalla")
     p.add_argument("--data_root", type=str, default=None)
     p.add_argument("--synthetic", action="store_true", help="markov synthetic data")
@@ -93,6 +105,9 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
     from gsrs_tpu_torch.train.seq_trainer import SeqTrainer
 
     device = resolve_device(device)
+    if args.model == "hstu" and args.synthetic:
+        raise SystemExit("HSTU trains on each item's time: the synthetic sequences have none "
+                         "(give a dataset directory with train_times.txt)")
     if args.synthetic:
         seq_data = synthetic_markov_sequences(max_len=args.max_len, seed=args.seed)
     else:
@@ -105,6 +120,9 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
             data = load_lastfm(ddir)
         else:
             data = load_dataset(ddir, name=args.dataset)
+        if args.model == "hstu" and data.train_times is None:
+            raise SystemExit(f"HSTU trains on each item's time: {ddir} has no train_times.txt "
+                             f"(the MovieLens converter writes it)")
         seq_data = sequences_from_interactions(data, max_len=args.max_len)
     print(f"[seq] {seq_data.name}: {len(seq_data.train_seqs)} sequences, "
           f"{seq_data.m_items} items, max_len {seq_data.max_len}")
@@ -114,6 +132,9 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
                             dim=args.dim, hidden=args.hidden, blocks=args.blocks,
                             heads=args.heads, dropout=args.dropout, bf16=args.bf16,
                             device=device, **published)
+    optim = PUBLISHED_OPTIM if args.published else {}
+    if args.model == "hstu":
+        optim = HSTU_OPTIM
     mesh = None
     if args.data_axis * args.model_axis > 1:
         from gsrs_tpu_torch.parallel.mesh import make_mesh
@@ -122,7 +143,7 @@ def main(argv: Optional[list] = None, device: DeviceLike = None):
         print(f"[seq] mesh: data={args.data_axis} × model={args.model_axis} ({mesh.backend})")
     trainer = SeqTrainer(model, seq_data, batch_size=args.batch, lr=args.lr, decay=args.decay,
                          seed=args.seed, topks=topks_from_string(args.topks), mesh=mesh,
-                         device=device, **(PUBLISHED_OPTIM if args.published else {}))
+                         device=device, **optim)
     state = trainer.fit(epochs=args.epochs, checkpoint_dir=args.checkpoint_dir,
                         eval_every=args.eval_every, resume=args.resume,
                         tensorboard=bool(args.tensorboard), comment=args.comment)

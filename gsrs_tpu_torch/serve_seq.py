@@ -10,7 +10,9 @@ runs the encoder, one launch of the masked-scoring CUDA kernel
 session's seen-items bitset, and the exact top-k in ``lax.top_k``'s
 order (`gsrs_tpu_torch.ops.topk.exact_topk`). The query and the rows
 are the model's `scoring_query` and `scoring_catalog`: for BERT4Rec's
-Eq. 7 head, (GELU(h·W^P + b^P) ‖ 1) against (E ‖ b^O).
+Eq. 7 head, (GELU(h·W^P + b^P) ‖ 1) against (E ‖ b^O). HSTU is refused
+(`refuse_timed`): it scores a history with its items' times, which a
+request does not carry.
 
 CLI:
   python -m gsrs_tpu_torch.serve_seq export --checkpoint_dir ckpts --out seq.npz
@@ -53,6 +55,7 @@ class SeqRetriever:
     device: DeviceLike = None
 
     def __post_init__(self):
+        refuse_timed(self.model)
         self.device = resolve_device(self.device)
         self.model = self.model.to(self.device)
         if self.params is not None:
@@ -125,6 +128,14 @@ class SeqRetriever:
             return topk_scores(masked_scores(q, self.model.scoring_catalog(), seen_rows), k)
 
 
+def refuse_timed(model) -> None:
+    """Raise for a model that scores a history with its times (HSTU): a
+    request carries item ids alone."""
+    if getattr(model, "uses_times", False):
+        raise ValueError(f"{type(model).__name__} is not served: it scores a history with each "
+                         f"item's time, and a request carries item ids alone")
+
+
 def export_seq_model(
     params: dict,
     kind: str,
@@ -191,6 +202,7 @@ def export_checkpoint(args) -> None:
               "hidden": args.hidden, "blocks": args.blocks, "heads": args.heads}
     kind = tm["kind"]
     model = seq_model_from_meta(tm, device=resolve_device(args.device))
+    refuse_timed(model)
     ckpt = CheckpointManager(args.checkpoint_dir)
     path = ckpt.resolve_resume_path(None)
     if path is None:

@@ -20,6 +20,15 @@ A `train_epoch` call trains the rest of the epoch, or, with
 ``steps_per_call`` set, exactly that many steps, going on where the last
 call stopped in the epoch's permutation and into the next epoch's.
 
+A model with ``uses_times`` (HSTU) trains on a dataset with times: each
+batch's (B, L) times, laid out like its ids, go with it into the step,
+shifted as the input is (the input's times and the targets' times), and
+into a captured step's inputs; its negatives are the model's own draw
+(`draw_negatives`: HSTU's K a slot). A model without times copies
+nothing new. ``HEAD_ROWS`` (`head_row_counts`) sums the slots whose
+negatives a sampled-softmax head computed, counted as they are drawn, so
+replayed steps count too.
+
 On one card (a CUDA device, no mesh) a step is replayed from a CUDA
 graph (`torch.cuda.CUDAGraph`): the first `WARMUP_STEPS` steps of an
 optimizer state with a batch shape run eagerly (they make AdamW's state
@@ -37,9 +46,10 @@ The CPU and a mesh step eagerly with `ScheduledAdam`.
 
 Spans (`gsrs_tpu_torch.utils.timer.span`, recorded under a profile):
 ``train.call`` a call (``shape`` (steps, B, L)), ``train.step`` a step,
-holding ``train.sample`` (the draws), ``train.forward`` (the model's own
-spans inside: BERT4Rec's published loss records ``seq.encode`` and
-``seq.head``, ``shape`` (slots, m, d)), ``train.backward`` and
+holding ``train.sample`` (the draws; HSTU's ``hstu.negatives`` inside),
+``train.forward`` (the model's own spans inside: BERT4Rec's published
+loss records ``seq.encode`` and ``seq.head``, ``shape`` (slots, m, d);
+HSTU's `models.hstu`'s), ``train.backward`` and
 ``train.optimizer`` (``train.clip`` inside, where the gradient is
 clipped), or on one card, after the warm-up, ``train.capture`` around
 those (once; `torch.cuda.graph` synchronizes the card as it begins) or
@@ -79,6 +89,7 @@ import torch
 from gsrs_tpu_torch.data.sequences import SequenceData
 from gsrs_tpu_torch.device import DeviceLike, resolve_device
 from gsrs_tpu_torch.kernels import add_launches, launch_counts, launches_since
+from gsrs_tpu_torch.models.hstu import HEAD_ROWS
 from gsrs_tpu_torch.ops.bitset import bitset_to_tensor, build_bitset
 from gsrs_tpu_torch.ops.linalg import fp32_reduction
 from gsrs_tpu_torch.ops.metrics import batch_metrics, topk_labels
@@ -106,6 +117,11 @@ def step_graph_counts() -> Dict[str, int]:
     return dict(STEP_GRAPHS)
 
 
+def head_row_counts() -> Dict[str, int]:
+    """The slots a sampled-softmax head computed so far (module note)."""
+    return dict(HEAD_ROWS)
+
+
 @dataclasses.dataclass
 class SeqTrainState:
     """The model's parameters (live, by the JAX package's names), the
@@ -118,8 +134,9 @@ class SeqTrainState:
 
 
 class StepDraws(NamedTuple):
-    """One step's draws: the negatives (B, L) and the model's own
-    (`model.draw`: dropout keep masks, or BERT4Rec's `ClozeDraws`)."""
+    """One step's draws: the negatives ((B, L), or HSTU's (B, L, K)) and
+    the model's own (`model.draw`: dropout keep masks, BERT4Rec's
+    `ClozeDraws` or HSTU's `HSTUDraws`)."""
 
     neg: torch.Tensor
     model: Any
@@ -136,6 +153,14 @@ def _map_tensors(fn, tree: Any) -> Any:
     if isinstance(tree, list):
         return [_map_tensors(fn, v) for v in tree]
     return tree
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """(B, L) ``x`` one slot to the right, 0 in the first: the input of a
+    step whose targets are ``x``."""
+    out = torch.zeros_like(x)
+    out[:, 1:] = x[:, :-1]
+    return out
 
 
 def to_device(tree: Any, device: torch.device) -> Any:
@@ -156,26 +181,34 @@ def _copy_into(dst: Any, src: Any) -> None:
 class _StepGraph:
     """One training step captured as a CUDA graph: its inputs (the batch
     and the draws), its loss and its optimizer state live at fixed
-    addresses; the kernel launches its capture counted."""
+    addresses, and the batch's times where it has them; the kernel
+    launches its capture counted."""
 
-    def __init__(self, seqs: torch.Tensor, draws: "StepDraws"):
+    def __init__(self, seqs: torch.Tensor, draws: "StepDraws",
+                 times: Optional[torch.Tensor] = None):
         self.seqs, self.draws = seqs.clone(), _map_tensors(torch.clone, draws)
+        self.times = None if times is None else times.clone()
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self, step, state: "SeqTrainState"):
-        """Capture ``step(state, seqs, draws)`` on the graph's inputs, then
-        run it once by a replay (a capture runs nothing) → (state, loss)."""
+        """Capture ``step(state, seqs, draws, times)`` on the graph's
+        inputs, then run it once by a replay (a capture runs nothing) →
+        (state, loss)."""
         before = launch_counts()
         with torch.cuda.graph(self.graph):
-            state, self.loss = step(state, self.seqs, self.draws)
+            state, self.loss = step(state, self.seqs, self.draws, self.times)
         self.launches = launches_since(before)
         self.graph.replay()
         return state, self.loss.clone()
 
-    def replay(self, seqs: torch.Tensor, draws: "StepDraws") -> torch.Tensor:
-        """The step on ``seqs`` and ``draws`` → its loss (a copy)."""
+    def replay(self, seqs: torch.Tensor, draws: "StepDraws",
+               times: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step on ``seqs``, ``draws`` and ``times`` → its loss (a
+        copy)."""
         self.seqs.copy_(seqs)
         _copy_into(self.draws, draws)
+        if self.times is not None:
+            self.times.copy_(times)
         self.graph.replay()
         add_launches(self.launches)
         return self.loss.clone()
@@ -190,12 +223,13 @@ def _catalog_bitset(users: np.ndarray, shifted_items: np.ndarray, n_users: int,
 
 
 class SeqTrainer:
-    """Trains ``model`` (SASRec, GRU4Rec or BERT4Rec on ``device``, default
-    ``cuda:0``: on a mesh, the rank's device) on ``data``. ``mesh``
-    shards ``model`` in place; batch_size and eval_batch must divide by
-    its data axis. ``warmup_steps``, ``decay_steps``, ``weight_decay``,
-    ``clip_norm`` and ``adam_eps`` set the optimizer (module note); their
-    defaults give Adam at the constant ``lr``."""
+    """Trains ``model`` (SASRec, GRU4Rec, BERT4Rec or HSTU on ``device``,
+    default ``cuda:0``: on a mesh, the rank's device) on ``data``.
+    ``mesh`` shards ``model`` in place; batch_size and eval_batch must
+    divide by its data axis. ``warmup_steps``, ``decay_steps``,
+    ``weight_decay``, ``clip_norm``, ``adam_eps`` and ``adam_betas`` set
+    the optimizer (module note); their defaults give Adam at the constant
+    ``lr``."""
 
     def __init__(
         self,
@@ -214,6 +248,7 @@ class SeqTrainer:
         weight_decay: float = 0.0,
         clip_norm: Optional[float] = None,
         adam_eps: float = 1e-8,
+        adam_betas: Tuple[float, float] = (0.9, 0.999),
     ):
         self.device = dev = resolve_device(device)
         if model.item_emb.device != dev:
@@ -221,6 +256,12 @@ class SeqTrainer:
         if mesh is not None and getattr(model.cfg, "published", 0):
             raise ValueError("the published cloze's softmax over the catalog is not sharded: "
                              "train it on one device")
+        self.uses_times = bool(getattr(model, "uses_times", False))
+        if self.uses_times and mesh is not None:
+            raise ValueError(f"{type(model).__name__} is not sharded: train it on one device")
+        if self.uses_times and (data.train_times is None or data.eval_times is None):
+            raise ValueError(f"{type(model).__name__} needs each slot's time: the dataset "
+                             f"{data.name!r} has none")
         if mesh is not None and (batch_size % mesh.data_size or eval_batch % mesh.data_size):
             raise ValueError(f"batch_size {batch_size} and eval_batch {eval_batch} must divide "
                              f"by the data axis ({mesh.data_size})")
@@ -241,7 +282,8 @@ class SeqTrainer:
             schedule = linear_warmup_decay(lr, warmup_steps, decay_steps)
         else:
             schedule = lambda count: float(np.float32(lr))  # noqa: E731
-        opt_kw = dict(eps=adam_eps, weight_decay=weight_decay, clip_norm=clip_norm)
+        opt_kw = dict(b1=adam_betas[0], b2=adam_betas[1], eps=adam_eps,
+                      weight_decay=weight_decay, clip_norm=clip_norm)
         # one card: steps replay from CUDA graphs (module note)
         self._one_card = dev.type == "cuda" and mesh is None
         self.optimizer = (CapturableAdam(schedule, device=dev, **opt_kw) if self._one_card
@@ -262,6 +304,11 @@ class SeqTrainer:
         seqs[:n] = data.train_seqs
         self.train_seqs = torch.from_numpy(seqs).to(dev)
         self.steps_per_epoch = pad // batch_size
+        self.train_times = None  # (pad, L) int64 seconds, for a model with times
+        if self.uses_times:
+            times = np.zeros((pad, L), np.int64)
+            times[:n] = data.train_times
+            self.train_times = torch.from_numpy(times).to(dev)
 
         hist_u = [np.full(len(v), u, np.int64) for u, v in data.user_hist_sets.items()]
         hist_i = [np.asarray(v, np.int64) for v in data.user_hist_sets.values()]
@@ -283,6 +330,11 @@ class SeqTrainer:
         self._eval_seqs = torch.from_numpy(e_seqs.reshape(n_b, B, L)).to(dev)
         self._eval_users = torch.from_numpy(users.reshape(n_b, B)).to(dev)
         self._eval_weights = torch.from_numpy(weights.reshape(n_b, B)).to(dev)
+        self._eval_times = None
+        if self.uses_times:
+            e_times = np.zeros((n_b * B, L), np.int64)
+            e_times[:n_eval] = data.eval_times
+            self._eval_times = torch.from_numpy(e_times.reshape(n_b, B, L)).to(dev)
         if mesh is not None:
             from gsrs_tpu_torch.ops.bitset import bitset_columns
             from gsrs_tpu_torch.parallel.sharding import catalog_range
@@ -306,22 +358,29 @@ class SeqTrainer:
     def draw_step(self, seqs: torch.Tensor, generator: torch.Generator) -> StepDraws:
         """One step's draws for the (B, L) batch ``seqs``, on the
         generator's device: negatives uniform in [1, m] (0 where the
-        positive is PAD), then the model's."""
-        neg = torch.randint(1, self.data.m_items + 1, seqs.shape, generator=generator,
-                            device=generator.device)
+        positive is PAD; the model's own `draw_negatives` where it has
+        one), then the model's."""
         pos = seqs.to(generator.device)
-        neg = torch.where(pos == 0, 0, neg)
+        if hasattr(self.model, "draw_negatives"):
+            neg = self.model.draw_negatives(generator, pos)
+        else:
+            neg = torch.randint(1, self.data.m_items + 1, seqs.shape, generator=generator,
+                                device=generator.device)
+            neg = torch.where(pos == 0, 0, neg)
         return StepDraws(neg, self.model.draw(generator, pos))
 
-    def _step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws):
-        """One step → (state, the loss; on a mesh this rank's share)."""
-        inp = torch.zeros_like(seqs)
-        inp[:, 1:] = seqs[:, :-1]
+    def _step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws,
+              times: Optional[torch.Tensor] = None):
+        """One step → (state, the loss; on a mesh this rank's share);
+        ``times``: the batch's (B, L) times, for a model with times."""
+        inp = _shifted(seqs)
         draws = to_device(draws, self.device)
+        kw = {} if times is None else {"times": (_shifted(times), times)}
         with fp32_reduction():  # the backward's bf16 products too
             with span("train.forward"):
                 if self.mesh is None:
-                    loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model)
+                    loss, aux = self.model.next_item_bpr_loss(inp, seqs, draws.neg, draws.model,
+                                                              **kw)
                     total = loss + self.decay * aux["reg"]
                 else:
                     total = self._mesh_share(inp, seqs, draws)
@@ -338,13 +397,14 @@ class SeqTrainer:
         """Whether steps on this trainer are captured and replayed."""
         return self._one_card
 
-    def _train_step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws):
+    def _train_step(self, state: SeqTrainState, seqs: torch.Tensor, draws: StepDraws,
+                    times: Optional[torch.Tensor] = None):
         """One step → (state, the loss): on the CPU or a mesh `_step`; on
         one card eager for the first `WARMUP_STEPS` of the optimizer state
         and the batch shape, captured at the next, replayed after (module
         note)."""
         if not self._one_card:
-            return self._step(state, seqs, draws)
+            return self._step(state, seqs, draws, times)
         opt = state.opt_state
         if self._graphed_opt is not opt.optimizer:
             self._graphed_opt, self._graphs, self._eager = opt.optimizer, {}, {}
@@ -353,7 +413,7 @@ class SeqTrainer:
         graph = self._graphs.get(key)
         if graph is not None:
             with span("train.replay"):
-                loss = graph.replay(seqs, draws)
+                loss = graph.replay(seqs, draws, times)
             STEP_GRAPHS["replays"] += 1
             return dataclasses.replace(state, opt_state=dataclasses.replace(
                 opt, count=opt.count + 1)), loss
@@ -361,9 +421,9 @@ class SeqTrainer:
             p.grad = None
         if self._eager.get(key, 0) < WARMUP_STEPS or not self._captures():
             self._eager[key] = self._eager.get(key, 0) + 1
-            return self._step(state, seqs, draws)
+            return self._step(state, seqs, draws, times)
         with span("train.capture"):
-            graph = _StepGraph(seqs, to_device(draws, self.device))
+            graph = _StepGraph(seqs, to_device(draws, self.device), times)
             state, loss = graph.capture(self._step, state)
         self._graphs[key] = graph
         STEP_GRAPHS["captures"] += 1
@@ -384,14 +444,20 @@ class SeqTrainer:
         return (aux["bpr"] * (w_local / w_all) + self.decay * aux["reg"] * frac) \
             / self.mesh.model_size
 
-    def run_steps(self, state: SeqTrainState, batches, draws: Sequence[StepDraws]):
+    def run_steps(self, state: SeqTrainState, batches, draws: Sequence[StepDraws],
+                  times=None):
         """One optimizer step per (B, L) batch of ``batches`` with the
-        given draws → (state, the per-step losses ``loss + decay · reg``
-        on the device)."""
+        given draws (and, for a model with times, each batch's ``times``)
+        → (state, the per-step losses ``loss + decay · reg`` on the
+        device)."""
         losses = []
-        for seqs, d in zip(torch.as_tensor(batches, device=self.device), draws):
+        batches = torch.as_tensor(batches, device=self.device)
+        times = [None] * len(batches) if times is None else torch.as_tensor(times,
+                                                                            device=self.device)
+        for seqs, d, t in zip(batches, draws, times):
             with span("train.step"):
-                state, loss = self._train_step(state, seqs.long(), d)
+                state, loss = self._train_step(state, seqs.long(), d,
+                                               None if t is None else t.long())
             losses.append(loss)
         return state, self._global(torch.stack(losses))
 
@@ -414,10 +480,19 @@ class SeqTrainer:
         return self.train_seqs[self._epoch_perm(epoch)].view(-1, self.batch_size,
                                                               self.data.max_len)
 
+    def _batch_rows(self, epoch: int, step: int) -> torch.Tensor:
+        B = self.batch_size
+        return self._epoch_perm(epoch)[step * B:(step + 1) * B]
+
     def _batch(self, epoch: int, step: int) -> torch.Tensor:
         """Batch ``step`` of `epoch_batches` (``epoch``)."""
-        B = self.batch_size
-        return self.train_seqs[self._epoch_perm(epoch)[step * B:(step + 1) * B]]
+        return self.train_seqs[self._batch_rows(epoch, step)]
+
+    def _batch_times(self, epoch: int, step: int) -> Optional[torch.Tensor]:
+        """The times of `_batch` (``epoch``, ``step``); None without times."""
+        if self.train_times is None:
+            return None
+        return self.train_times[self._batch_rows(epoch, step)]
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(
@@ -432,10 +507,10 @@ class SeqTrainer:
         with span("train.call", shape=(steps, self.batch_size, self.data.max_len)):
             for _ in range(steps):
                 with span("train.step"):
-                    seqs = self._batch(epoch, i)
+                    seqs, times = self._batch(epoch, i), self._batch_times(epoch, i)
                     with span("train.sample"):
                         draws = self.draw_step(seqs, self.step_generator(epoch, i))
-                    state, loss = self._train_step(state, seqs, draws)
+                    state, loss = self._train_step(state, seqs, draws, times)
                 losses.append(loss)
                 epoch, i = (epoch + 1, 0) if i + 1 == self.steps_per_epoch else (epoch, i + 1)
             mean = self._global(torch.stack(losses)).mean()
@@ -471,9 +546,11 @@ class SeqTrainer:
         shard and merged over the model axis."""
         if self.mesh is None:
             items = self.model.scoring_catalog()
-            for seqs, users, weights in zip(self._eval_seqs, self._eval_users,
-                                            self._eval_weights):
-                q = self.model.scoring_query(seqs).contiguous()
+            times = self._eval_times if self.uses_times else [None] * len(self._eval_seqs)
+            for seqs, users, weights, t in zip(self._eval_seqs, self._eval_users,
+                                               self._eval_weights, times):
+                q = (self.model.scoring_query(seqs) if t is None
+                     else self.model.scoring_query(seqs, t)).contiguous()
                 scores = masked_scores(q, items, self.hist_bitset.index_select(0, users))
                 yield seqs, users, weights, topk_scores(scores, max_k)[1]
             return
